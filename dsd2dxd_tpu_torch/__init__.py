@@ -1,0 +1,37 @@
+"""dsd2dxd_tpu_torch -- the PyTorch/CUDA port of dsd2dxd_tpu.
+
+The JAX package ``dsd2dxd_tpu`` stays the reference. This package runs its
+main path (DSD64 -> 24-bit 352.8 kHz, and every other pure ÷8 chain) on an
+NVIDIA card: host code in PyTorch, the fused ÷8 kernel written by hand in
+CUDA (``csrc/fused_div8.cu``). It reuses the JAX package's host modules
+(formats, containers, filters, native, CLI parser) by import; none of them
+loads jax, and neither does this package.
+"""
+
+from dsd2dxd_tpu.formats.dsd_types import (
+    ONE_HUNDRED_PERCENT,
+    DitherType,
+    DsdFileFormat,
+    DsdRate,
+    Endianness,
+    FilterType,
+    FmtType,
+    OutputType,
+    ProgressUpdate,
+)
+from dsd2dxd_tpu_torch.pipeline.engine import Converter
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "DitherType",
+    "DsdFileFormat",
+    "DsdRate",
+    "Endianness",
+    "FilterType",
+    "FmtType",
+    "OutputType",
+    "ProgressUpdate",
+    "ONE_HUNDRED_PERCENT",
+    "Converter",
+]

@@ -1,0 +1,136 @@
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+
+The sources compile with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, which ``ctypes`` loads. The library lands in
+``dsd2dxd_tpu_torch/_build/`` (gitignored), named by a hash of the
+sources and flags, and is built at first use -- never at import, so the
+package imports where there is no CUDA toolkit. A failed build raises;
+nothing falls back to the plain PyTorch versions.
+
+Each C entry returns ``cudaGetLastError()`` after its launch, and the
+Python wrapper raises when that is not 0: a refused launch never runs,
+and a later ``synchronize`` would not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("fused_div8.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+MAX_STAGES = 4  # must equal MAX_STAGES in csrc/fused_div8.cu
+
+
+class Div8Params(ctypes.Structure):
+    """Mirror of ``struct Div8Params`` in csrc/fused_div8.cu (all fields
+    4 bytes wide, so natural alignment matches the C layout; the loader
+    also compares sizeof on both sides)."""
+
+    _fields_ = [
+        ("n_stages", ctypes.c_int),
+        ("channels", ctypes.c_int),
+        ("tile_frames", ctypes.c_int),
+        ("halo_bytes", ctypes.c_int),
+        ("block_out", ctypes.c_int),
+        ("byte_off", ctypes.c_int),
+        ("bit_off", ctypes.c_int),
+        ("n_load_bytes", ctypes.c_int),
+        ("n_taps_total", ctypes.c_int),
+        ("buf_a", ctypes.c_int),
+        ("buf_b", ctypes.c_int),
+        ("smem_bytes", ctypes.c_int),
+        ("n_taps", ctypes.c_int * MAX_STAGES),
+        ("decim", ctypes.c_int * MAX_STAGES),
+        ("tap_off", ctypes.c_int * MAX_STAGES),
+        ("out_len", ctypes.c_int * MAX_STAGES),
+        ("gain", ctypes.c_float),
+        ("apply_gain", ctypes.c_int),
+        ("scale", ctypes.c_float),
+        ("dither", ctypes.c_int),
+        ("key0", ctypes.c_uint32),
+        ("key1", ctypes.c_uint32),
+        ("big_endian", ctypes.c_int),
+    ]
+
+
+_lock = threading.Lock()
+_lib = None
+BUILD_LOG = ""         # nvcc's output (ptxas register/smem report)
+BUILD_SECONDS = None   # wall time of the last build, None if cached
+
+
+def find_nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources (if this exact build is not there yet) and
+    return the library path. Raises RuntimeError on a failed build."""
+    global BUILD_LOG, BUILD_SECONDS
+    lib_path = BUILD_DIR / f"libdsd2dxd_torch_{_digest()}.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / name) for name in SOURCES)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_LOG = res.stdout + res.stderr
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """The bound kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build()))
+        lib.dsd2dxd_div8_params_size.argtypes = []
+        lib.dsd2dxd_div8_params_size.restype = ctypes.c_int
+        if lib.dsd2dxd_div8_params_size() != ctypes.sizeof(Div8Params):
+            raise RuntimeError("Div8Params layout differs between "
+                               "kernels.py and csrc/fused_div8.cu")
+        lib.dsd2dxd_fused_div8.argtypes = [
+            ctypes.c_void_p,  # halo (C, H) u8
+            ctypes.c_void_p,  # x (C, T) u8
+            ctypes.c_void_p,  # taps f32, all stages
+            ctypes.c_void_p,  # out (T*C*3,) u8
+            ctypes.c_void_p,  # peak f32[1], zeroed
+            ctypes.POINTER(Div8Params),
+            ctypes.c_void_p,  # cudaStream_t
+        ]
+        lib.dsd2dxd_fused_div8.restype = ctypes.c_int
+        _lib = lib
+        return lib

@@ -1,0 +1,74 @@
+"""Device selection and the toolchain probe for the port.
+
+Counterpart of ``dsd2dxd_tpu/utils/device.py``. There is no implicit
+fallback: ``device=None`` means the first CUDA device, and without one it
+raises. The CPU runs only when a caller asks for it by name (the tests).
+"""
+
+from __future__ import annotations
+
+import shutil
+import subprocess
+import sys
+
+import torch
+
+from dsd2dxd_tpu.utils.errors import ConfigError
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda:0``; anything else as given. Raises ConfigError
+    for a CUDA device that is not there."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise ConfigError("no CUDA device: pass device='cpu' to run the "
+                              "plain PyTorch path explicitly")
+        return torch.device("cuda", 0)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise ConfigError(f"{dev} requested but CUDA is not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise ConfigError(f"{dev} requested but only "
+                              f"{torch.cuda.device_count()} CUDA devices")
+    return dev
+
+
+def card_label() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them
+    (``name, power.limit`` per card, one line each)."""
+    exe = shutil.which("nvidia-smi")
+    if exe is None:
+        raise RuntimeError("nvidia-smi not found")
+    res = subprocess.run(
+        [exe, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip()
+
+
+def toolchain_probe() -> dict:
+    """Versions and tools the port's kernels depend on."""
+    from dsd2dxd_tpu_torch.kernels import find_nvcc
+
+    try:
+        nvcc = find_nvcc()
+    except RuntimeError:
+        nvcc = None
+    try:
+        import triton  # noqa: F401
+        has_triton = True
+    except ImportError:
+        has_triton = False
+    return {
+        "python": sys.version.split()[0],
+        "torch": torch.__version__,
+        "torch_cuda": torch.version.cuda,
+        "cuda_available": torch.cuda.is_available(),
+        "device_count": torch.cuda.device_count(),
+        "nvcc": nvcc,
+        "triton": has_triton,
+    }

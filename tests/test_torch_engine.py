@@ -1,0 +1,178 @@
+"""The port's engine and CLI on the CPU (dsd2dxd_tpu_torch/pipeline,
+dsd2dxd_tpu_torch/cli) against the JAX engine, plus the configurations
+the port refuses."""
+
+import wave
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from dsd2dxd_tpu.formats.dsd_types import (
+    DitherType,
+    DsdRate,
+    Endianness,
+    FilterType,
+    FmtType,
+    OutputType,
+)
+from dsd2dxd_tpu.pipeline.engine import Converter as JConverter
+from dsd2dxd_tpu.utils.errors import ConfigError
+import dsd2dxd_tpu_torch.pipeline.engine as tengine
+from dsd2dxd_tpu_torch import Converter as TConverter
+from dsd2dxd_tpu_torch.cli.dsd2dxd import run as trun
+from dsd2dxd_tpu_torch.utils.device import resolve_device
+
+HEAD_SKIP = 128  # zero-primed JAX phase path vs idle-primed port
+
+
+@pytest.fixture
+def small_tiles(monkeypatch):
+    # several tiles per fixture, so the streamed state and n_valid count
+    monkeypatch.setattr(tengine, "_DEFAULT_TILE_TARGET", 16 * 1024)
+
+
+def _convert(cls, src, out_dir, output=OutputType.WAV, dither=DitherType.NONE,
+             level=-1.0, **kw):
+    conv = cls.from_container(
+        bit_depth=24, output=output, level_db=level, output_rate=352800,
+        out_dir=out_dir, dither=dither, filt=FilterType.EQUIRIPPLE,
+        append_rate=False, base_dir=src.parent, input_path=src, **kw)
+    conv.do_conversion()
+    return conv
+
+
+def _payload(path: Path, big_endian: bool):
+    data = path.read_bytes()
+    tag = b"SSND" if big_endian else b"data"
+    i = data.index(tag)
+    body_off = i + 8 + (8 if big_endian else 0)
+    header = data[:body_off]
+    b = np.frombuffer(data[body_off:], dtype=np.uint8)
+    b = b[:len(b) // 3 * 3].reshape(-1, 3).astype(np.int64)
+    if big_endian:
+        b = b[:, ::-1]
+    v = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
+    return header, np.where(v >= 1 << 23, v - (1 << 24), v).reshape(-1, 2)
+
+
+@pytest.mark.parametrize("output,ext,be", [(OutputType.WAV, "wav", False),
+                                           (OutputType.AIFF, "aif", True)])
+def test_slice_matches_jax_converter(tone_dsd64_stereo_dsf, tmp_path,
+                                     small_tiles, output, ext, be):
+    t_dir, j_dir = tmp_path / "t", tmp_path / "j"
+    t_dir.mkdir()
+    j_dir.mkdir()
+    tconv = _convert(TConverter, tone_dsd64_stereo_dsf, t_dir, output,
+                     device="cpu")
+    jconv = _convert(JConverter, tone_dsd64_stereo_dsf, j_dir, output)
+    assert tconv.stats["tiles"] > 2
+    t_path, j_path = tconv.output_path(), jconv.output_path()
+    assert t_path.name == j_path.name and t_path.suffix == f".{ext}"
+    th, tv = _payload(t_path, be)
+    jh, jv = _payload(j_path, be)
+    assert th == jh  # headers byte-identical
+    assert tv.shape == jv.shape == (176400, 2)
+    assert np.abs(tv[HEAD_SKIP:] - jv[HEAD_SKIP:]).max() <= 5
+    if not be:
+        with wave.open(str(t_path)) as w:
+            assert (w.getnchannels(), w.getsampwidth(), w.getframerate(),
+                    w.getnframes()) == (2, 3, 352800, 176400)
+
+
+def test_tiling_does_not_change_output(tone_dsd64_stereo_dsf, tmp_path,
+                                       monkeypatch):
+    """TPDF output is a function of the stream and the file seed only:
+    tile keys are per tile, so compare two runs at one tile size, and
+    NONE output across tile sizes."""
+    outs = []
+    for i, target in enumerate((16 * 1024, 64 * 1024)):
+        monkeypatch.setattr(tengine, "_DEFAULT_TILE_TARGET", target)
+        d = tmp_path / str(i)
+        d.mkdir()
+        conv = _convert(TConverter, tone_dsd64_stereo_dsf, d, device="cpu")
+        outs.append(conv.output_path().read_bytes())
+    assert outs[0] == outs[1]
+    a = tmp_path / "a"
+    b = tmp_path / "b"
+    a.mkdir()
+    b.mkdir()
+    ca = _convert(TConverter, tone_dsd64_stereo_dsf, a,
+                  dither=DitherType.TPDF, device="cpu")
+    cb = _convert(TConverter, tone_dsd64_stereo_dsf, b,
+                  dither=DitherType.TPDF, device="cpu")
+    assert ca.output_path().read_bytes() == cb.output_path().read_bytes()
+    assert ca.output_path().read_bytes() != outs[1]
+
+
+def test_cli_writes_wav(tone_dsd64_stereo_dsf, tmp_path, small_tiles):
+    out = tmp_path / "out"
+    out.mkdir()
+    rc = trun(["-o", "w", "-d", "X", "-l=-1", "-q", "-p", str(out),
+               str(tone_dsd64_stereo_dsf)], device="cpu")
+    assert rc == 0
+    wav = out / (tone_dsd64_stereo_dsf.stem + ".wav")
+    ref = tmp_path / "ref"
+    ref.mkdir()
+    conv = _convert(TConverter, tone_dsd64_stereo_dsf, ref, device="cpu")
+    assert wav.read_bytes() == conv.output_path().read_bytes()
+    # spectral sanity: the 1 kHz tone survives
+    _h, v = _payload(wav, False)
+    spec = np.abs(np.fft.rfft(v[HEAD_SKIP:, 0].astype(np.float64)))
+    freqs = np.fft.rfftfreq(len(v) - HEAD_SKIP, 1 / 352800)
+    assert abs(freqs[np.argmax(spec)] - 1000.0) < 5.0
+
+
+def test_cli_without_cuda_fails_cleanly(tone_dsd64_stereo_dsf, tmp_path,
+                                        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert trun(["-o", "w", "-q", "-p", str(tmp_path),
+                 str(tone_dsd64_stereo_dsf)]) == 1
+    assert not list(tmp_path.iterdir())
+
+
+def test_device_none_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ConfigError):
+        resolve_device(None)
+    with pytest.raises(ConfigError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(bit_depth=16), dict(bit_depth=20), dict(bit_depth=32),
+    dict(dither=DitherType.FPD), dict(dither=DitherType.NJAD),
+    dict(output=OutputType.FLAC), dict(output_rate=176400),
+    dict(output_rate=96000),
+], ids=["16bit", "20bit", "32bit", "FPD", "NJAD", "FLAC", "G2", "48k"])
+def test_unported_configs_raise(tone_dsd64_stereo_dsf, tmp_path, kw):
+    args = dict(bit_depth=24, output=OutputType.WAV, level_db=0.0,
+                output_rate=352800, out_dir=tmp_path,
+                dither=DitherType.TPDF, filt=FilterType.EQUIRIPPLE,
+                append_rate=False, base_dir=tone_dsd64_stereo_dsf.parent,
+                input_path=tone_dsd64_stereo_dsf, device="cpu")
+    args.update(kw)
+    with pytest.raises(ConfigError, match="ROADMAP"):
+        TConverter.from_container(**args)
+
+
+def test_level_check_is_unported():
+    with pytest.raises(ConfigError, match="ROADMAP"):
+        TConverter.new_level_check(352800, None, FmtType.PLANAR,
+                                   Endianness.MSB_FIRST, 2, 4096,
+                                   DsdRate.DSD64)
+
+
+def test_stdout_raw_equals_wav_payload(tone_dsd64_stereo_dsf, tmp_path,
+                                       small_tiles, capsysbinary):
+    """-o S writes the same little-endian wire bytes as the WAV payload."""
+    assert trun(["-o", "s", "-d", "X", "-l=-1", "-q",
+                 str(tone_dsd64_stereo_dsf)],
+                device="cpu") == 0
+    raw = capsysbinary.readouterr().out
+    conv = _convert(TConverter, tone_dsd64_stereo_dsf, tmp_path, device="cpu")
+    wav = conv.output_path().read_bytes()
+    assert len(raw) == 176400 * 2 * 3
+    assert wav[44:] == raw
