@@ -1,9 +1,10 @@
 """dsd2dxd_tpu_torch -- the PyTorch/CUDA port of dsd2dxd_tpu.
 
 The JAX package ``dsd2dxd_tpu`` stays the reference. This package runs its
-main path (DSD64 -> 24-bit 352.8 kHz, and every other pure ÷8 chain) on an
-NVIDIA card: host code in PyTorch, the fused ÷8 kernel written by hand in
-CUDA (``csrc/fused_div8.cu``). It reuses the JAX package's host modules
+44.1k family (every pure ÷2^k chain, DSD64 -> 352.8 kHz down to DSD256 ->
+88.2 kHz, at 16/20/24 bit and 32-bit float) on an NVIDIA card: host code in
+PyTorch, the fused decimation kernel written by hand in CUDA
+(``csrc/fused_decim.cu``). It reuses the JAX package's host modules
 (formats, containers, filters, native, CLI parser) by import; none of them
 loads jax, and neither does this package.
 """

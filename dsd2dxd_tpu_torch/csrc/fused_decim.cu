@@ -1,0 +1,311 @@
+// K1a-K1d: fused pure-decimation DSD -> PCM, one pass from raw DSD bytes to
+// wire bytes, for every pure ÷2^k chain (÷8 ... ÷128).
+//
+// Replaces the TPU kernel dsd2dxd_tpu/ops/fused.py::_build_kernel (launched
+// by make_fused_step's pallas_call) in all of its pure-decimation modes:
+//   K1a  G=1 (÷8), 24-bit;
+//   K1b  G=2/4 word lanes (÷16, ÷32);
+//   K1c  the à-trous tail of the ÷64/÷128 chains (G=4 head + dilated tail,
+//        phase 0 taken after);
+//   K1d  the 16-bit, 20-bit and 32-bit float (NONE/FPD) epilogues.
+// Word lanes and the undecimated à-trous tail exist only for the TPU's
+// layout. Here every stage is computed decimated and directly, so the four
+// modes are one cascade of up to MAX_STAGES stages and one epilogue chosen
+// at compile time (template <BITS, DITHER>, one instantiation per epilogue).
+// Plain version: dsd2dxd_tpu_torch/ops/fused.py::fused_decim_reference; the
+// two agree bit for bit on the card (same products, same pairwise sum
+// order, same Philox draws, no FMA contraction).
+//
+// What it computes, per channel and output frame m of the tile (R = prod M_s,
+// frame_bytes = R / 8 input bytes per output frame):
+//   window = halo (H bytes) ++ tile (T bytes), MSB-first ±1 samples
+//   stage s: y_s[j] = sum_k h_s[k] * y_{s-1}[M_s j - k]   (L = 1 stages)
+//   y = gain * y_last[m]; peak = max |y| over m < n_valid
+//   16/20/24-bit: q = clip(rint(y * 2^(b-1) + dither), -2^(b-1), 2^(b-1) - 1),
+//                 20-bit then << 4 into a 24-bit container; 2/3/3 wire bytes
+//   32-bit: y (NONE) or y + tpdf * ulp(y) (FPD); 4 wire bytes (IEEE-754)
+//   little endian for WAV and raw output, big endian for AIFF/AIFC.
+//
+// What bounds it on an H100: not memory. A tile moves frame_bytes bytes in
+// and 2-4 bytes out per output frame, but costs sum_s N_s * R / prod(M_<=s)
+// FIR MACs per frame (Equiripple: 158 at ÷8, 334 at ÷16, 612 at ÷32, 2340
+// at ÷128) plus at most one Philox4x32-10 call, so the kernel is bound by
+// fp32 instruction throughput and shared-memory reads.
+//
+// Design (simple first; wgmma/TMA/persistence are for later work):
+// - grid (ceil(T_out / block_out), C): a block owns block_out output frames
+//   of one channel and reads exactly the bytes their filter context needs
+//   (-277 bits before the block for E ÷8, -4079 for E ÷128), from the halo
+//   or the tile as the index falls. Blocks are independent: no state is
+//   carried between them, unlike the TPU's sequential grid.
+// - it unpacks the bits to ±1 f32 in dynamic shared memory and runs the
+//   stages ping-pong between two shared buffers; the last stage feeds the
+//   epilogue straight from registers.
+// - shared memory: the unpacked stage-0 window is block_out * R + context
+//   floats, 271 KB at ÷128 with block_out = 512, over the 227 KB a block may
+//   have. The wrapper therefore lets block_out follow the chain (512 down to
+//   ÷32, 256 at ÷64, 128 at ÷128: block_out * R <= 16384 bits, at most ~82 KB
+//   of stage-0 window). The other route, reading stage 0 from the packed bytes,
+//   would save that window but needs a second FIR routine for stage 0; with
+//   one routine for every stage the redundant context stays <= 25 % of the
+//   stage-0 work (4079 of 16384 bits at ÷128), which is cheaper than the
+//   code.
+// - taps come from the chain (device buffer), so every bank runs.
+// - each output sums its N products pairwise in the plain version's order
+//   (binary counter: S_a + (S_b + ...) over N's power-of-two blocks), with
+//   __fmul_rn/__fadd_rn so nvcc cannot contract to FMA.
+// - peak: frames m >= n_valid (the idle pad of a partial final tile, where
+//   the filter rings) are left out; warp max, block max, one atomicMax on the
+//   bit pattern of the non-negative f32 (order-independent, deterministic).
+// - dither: Philox4x32-10, counter (frame, channel, 0, 0), key from the
+//   wrapper; uniforms (x >> 8) * 2^-24; TPDF and FPD (u0 + u1) - 1,
+//   RECT u0 - 0.5. FPD's ulp is f32(bits(y) & 0x7F800000) * 2^-23, as the
+//   TPU kernel takes it.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define MAX_STAGES 8
+#define THREADS 256
+#define MAX_LEVELS 8  // tree levels: taps per stage < 256
+
+enum { DITHER_NONE = 0, DITHER_TPDF = 1, DITHER_RECT = 2, DITHER_FPD = 3 };
+
+struct DecimParams {
+  int n_stages;
+  int channels;
+  int tile_bytes;    // T: input bytes per channel
+  int tile_frames;   // T_out = T / frame_bytes: output frames per channel
+  int frame_bytes;   // input bytes per output frame (R / 8)
+  int n_valid;       // frames m >= n_valid leave the peak alone
+  int halo_bytes;    // H
+  int block_out;     // output frames per block
+  int byte_off;      // window byte of the block's first input byte, minus m0 * frame_bytes
+  int bit_off;       // first needed bit inside that byte
+  int n_load_bytes;  // bytes each block unpacks
+  int n_taps_total;
+  int buf_a;         // float offsets into dynamic shared memory
+  int buf_b;
+  int smem_bytes;
+  int n_taps[MAX_STAGES];
+  int decim[MAX_STAGES];
+  int tap_off[MAX_STAGES];
+  int out_len[MAX_STAGES];  // outputs per block of each stage
+  float gain;
+  int apply_gain;
+  int bit_depth;     // 16, 20, 24 (integer) or 32 (float)
+  int dither;        // DITHER_*
+  uint32_t key0;
+  uint32_t key1;
+  int big_endian;
+};
+
+__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
+                                              uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]);
+    const uint32_t lo0 = 0xD2511F53u * c[0];
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]);
+    const uint32_t lo1 = 0xCD9E8D57u * c[2];
+    const uint32_t n0 = hi1 ^ c[1] ^ k0;
+    const uint32_t n2 = hi0 ^ c[3] ^ k1;
+    c[0] = n0;
+    c[1] = lo1;
+    c[2] = n2;
+    c[3] = lo0;
+  }
+}
+
+// sum_{k<n} h[k] * src[-k], summed pairwise in the order of the plain
+// version's tree_sum.
+__device__ __forceinline__ float fir_tree(const float* __restrict__ h,
+                                          const float* src, int n) {
+  float acc[MAX_LEVELS];
+  for (int k = 0; k < n; ++k) {
+    float v = __fmul_rn(h[k], src[-k]);
+#pragma unroll
+    for (int lv = 0; lv < MAX_LEVELS; ++lv) {
+      if ((k >> lv) & 1) {
+        v = __fadd_rn(acc[lv], v);
+      } else {
+        acc[lv] = v;
+        break;
+      }
+    }
+  }
+  float out = 0.0f;
+  bool have = false;
+#pragma unroll
+  for (int lv = 0; lv < MAX_LEVELS; ++lv) {
+    if ((n >> lv) & 1) {
+      out = have ? __fadd_rn(acc[lv], out) : acc[lv];
+      have = true;
+    }
+  }
+  return out;
+}
+
+// The wire word of one sample (its bytes low first) for epilogue
+// <BITS, DITHER>; y is the gain-scaled cascade output of frame m.
+template <int BITS, int DITHER>
+__device__ __forceinline__ uint32_t epilogue(float y, uint32_t m, uint32_t c,
+                                             uint32_t k0, uint32_t k1) {
+  float u0 = 0.0f, u1 = 0.0f;
+  if constexpr (DITHER != DITHER_NONE) {
+    uint32_t ctr[4] = {m, c, 0u, 0u};
+    philox4x32_10(ctr, k0, k1);
+    u0 = __uint2float_rn(ctr[0] >> 8) * 5.9604644775390625e-08f;  // 2^-24
+    u1 = __uint2float_rn(ctr[1] >> 8) * 5.9604644775390625e-08f;
+  }
+  if constexpr (BITS == 32) {
+    float v = y;
+    if constexpr (DITHER == DITHER_FPD) {
+      const float tpdf = __fadd_rn(__fadd_rn(u0, u1), -1.0f);
+      const float ulp = __fmul_rn(
+          __int_as_float(__float_as_int(y) & 0x7F800000),
+          1.1920928955078125e-07f);  // 2^-23
+      v = __fadd_rn(y, __fmul_rn(tpdf, ulp));
+    }
+    return __float_as_uint(v);
+  } else {
+    const float scale = (float)(1 << (BITS - 1));
+    float v = __fmul_rn(y, scale);
+    if constexpr (DITHER == DITHER_TPDF) {
+      v = __fadd_rn(v, __fadd_rn(__fadd_rn(u0, u1), -1.0f));
+    } else if constexpr (DITHER == DITHER_RECT) {
+      v = __fadd_rn(v, __fadd_rn(u0, -0.5f));
+    }
+    const float q = fminf(fmaxf(rintf(v), -scale), scale - 1.0f);
+    uint32_t w = (uint32_t)(int)q;
+    if constexpr (BITS == 20) w <<= 4;  // 20 significant bits at the top of 24
+    return w;
+  }
+}
+
+template <int BITS, int DITHER>
+__global__ void __launch_bounds__(THREADS)
+fused_decim_kernel(const uint8_t* __restrict__ halo,
+                   const uint8_t* __restrict__ x,
+                   const float* __restrict__ taps, uint8_t* __restrict__ out,
+                   float* __restrict__ peak, const DecimParams p) {
+  constexpr int BPS = BITS == 16 ? 2 : (BITS == 32 ? 4 : 3);
+  extern __shared__ float smem[];
+  __shared__ float warp_max[THREADS / 32];
+  const int c = blockIdx.y;
+  const long long m0 = (long long)blockIdx.x * p.block_out;
+  const long long H = p.halo_bytes;
+  const long long T = p.tile_bytes;
+  const int tid = threadIdx.x;
+  float* h_s = smem;
+  float* buf_a = smem + p.buf_a;
+  float* buf_b = smem + p.buf_b;
+
+  for (int i = tid; i < p.n_taps_total; i += blockDim.x) h_s[i] = taps[i];
+  const long long wb0 = m0 * p.frame_bytes + p.byte_off;
+  for (int i = tid; i < p.n_load_bytes; i += blockDim.x) {
+    const long long wb = wb0 + i;  // window byte
+    uint32_t byte = 0x69u;         // DSD idle past the window
+    if (wb < H) {
+      byte = halo[c * H + wb];
+    } else if (wb - H < T) {
+      byte = x[c * T + (wb - H)];
+    }
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+      buf_a[8 * i + b] = ((byte >> (7 - b)) & 1u) ? 1.0f : -1.0f;
+  }
+  __syncthreads();
+
+  const float* in = buf_a + p.bit_off;
+  const int last = p.n_stages - 1;
+  for (int s = 0; s < last; ++s) {
+    float* dst = ((s + 1) & 1) ? buf_b : buf_a;
+    const float* h = h_s + p.tap_off[s];
+    const int n = p.n_taps[s];
+    const int m = p.decim[s];
+    const int len = p.out_len[s];
+    for (int j = tid; j < len; j += blockDim.x)
+      dst[j] = fir_tree(h, in + m * j + n - 1, n);
+    __syncthreads();
+    in = dst;
+  }
+
+  const float* h = h_s + p.tap_off[last];
+  const int n = p.n_taps[last];
+  const int md = p.decim[last];
+  float local_peak = 0.0f;
+  for (int j = tid; j < p.block_out; j += blockDim.x) {
+    const long long m = m0 + j;
+    if (m >= p.tile_frames) break;
+    float y = fir_tree(h, in + md * j + n - 1, n);
+    if (p.apply_gain) y = __fmul_rn(y, p.gain);
+    if (m < p.n_valid) local_peak = fmaxf(local_peak, fabsf(y));
+    const uint32_t w =
+        epilogue<BITS, DITHER>(y, (uint32_t)m, (uint32_t)c, p.key0, p.key1);
+    uint8_t* o = out + (m * p.channels + c) * BPS;
+#pragma unroll
+    for (int b = 0; b < BPS; ++b)
+      o[p.big_endian ? BPS - 1 - b : b] = (uint8_t)(w >> (8 * b));
+  }
+
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    local_peak = fmaxf(local_peak, __shfl_xor_sync(0xffffffffu, local_peak, off));
+  if ((tid & 31) == 0) warp_max[tid >> 5] = local_peak;
+  __syncthreads();
+  if (tid < 32) {
+    float v = tid < (int)(blockDim.x / 32) ? warp_max[tid] : 0.0f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    // |y| >= 0: its f32 bit pattern orders like the value
+    if (tid == 0) atomicMax(reinterpret_cast<int*>(peak), __float_as_int(v));
+  }
+}
+
+template <int BITS, int DITHER>
+static int launch(const void* halo, const void* x, const void* taps,
+                  void* out, void* peak, const DecimParams* p,
+                  cudaStream_t stream) {
+  auto kernel = fused_decim_kernel<BITS, DITHER>;
+  if (p->smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p->smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((p->tile_frames + p->block_out - 1) / p->block_out,
+                  p->channels);
+  kernel<<<grid, THREADS, p->smem_bytes, stream>>>(
+      (const uint8_t*)halo, (const uint8_t*)x, (const float*)taps,
+      (uint8_t*)out, (float*)peak, *p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dsd2dxd_decim_params_size() { return (int)sizeof(DecimParams); }
+
+extern "C" int dsd2dxd_fused_decim(const void* halo, const void* x,
+                                   const void* taps, void* out, void* peak,
+                                   const DecimParams* p, void* stream) {
+  if (p->n_stages < 1 || p->n_stages > MAX_STAGES || p->tile_frames < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (p->bit_depth * 4 + p->dither) {
+    case 16 * 4 + DITHER_NONE: return launch<16, DITHER_NONE>(halo, x, taps, out, peak, p, s);
+    case 16 * 4 + DITHER_TPDF: return launch<16, DITHER_TPDF>(halo, x, taps, out, peak, p, s);
+    case 16 * 4 + DITHER_RECT: return launch<16, DITHER_RECT>(halo, x, taps, out, peak, p, s);
+    case 20 * 4 + DITHER_NONE: return launch<20, DITHER_NONE>(halo, x, taps, out, peak, p, s);
+    case 20 * 4 + DITHER_TPDF: return launch<20, DITHER_TPDF>(halo, x, taps, out, peak, p, s);
+    case 20 * 4 + DITHER_RECT: return launch<20, DITHER_RECT>(halo, x, taps, out, peak, p, s);
+    case 24 * 4 + DITHER_NONE: return launch<24, DITHER_NONE>(halo, x, taps, out, peak, p, s);
+    case 24 * 4 + DITHER_TPDF: return launch<24, DITHER_TPDF>(halo, x, taps, out, peak, p, s);
+    case 24 * 4 + DITHER_RECT: return launch<24, DITHER_RECT>(halo, x, taps, out, peak, p, s);
+    case 32 * 4 + DITHER_NONE: return launch<32, DITHER_NONE>(halo, x, taps, out, peak, p, s);
+    case 32 * 4 + DITHER_FPD: return launch<32, DITHER_FPD>(halo, x, taps, out, peak, p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

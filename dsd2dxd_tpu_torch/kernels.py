@@ -26,22 +26,25 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_div8.cu",)
+SOURCES = ("fused_decim.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-MAX_STAGES = 4  # must equal MAX_STAGES in csrc/fused_div8.cu
+MAX_STAGES = 8  # must equal MAX_STAGES in csrc/fused_decim.cu
 
 
-class Div8Params(ctypes.Structure):
-    """Mirror of ``struct Div8Params`` in csrc/fused_div8.cu (all fields
+class DecimParams(ctypes.Structure):
+    """Mirror of ``struct DecimParams`` in csrc/fused_decim.cu (all fields
     4 bytes wide, so natural alignment matches the C layout; the loader
     also compares sizeof on both sides)."""
 
     _fields_ = [
         ("n_stages", ctypes.c_int),
         ("channels", ctypes.c_int),
+        ("tile_bytes", ctypes.c_int),
         ("tile_frames", ctypes.c_int),
+        ("frame_bytes", ctypes.c_int),
+        ("n_valid", ctypes.c_int),
         ("halo_bytes", ctypes.c_int),
         ("block_out", ctypes.c_int),
         ("byte_off", ctypes.c_int),
@@ -57,7 +60,7 @@ class Div8Params(ctypes.Structure):
         ("out_len", ctypes.c_int * MAX_STAGES),
         ("gain", ctypes.c_float),
         ("apply_gain", ctypes.c_int),
-        ("scale", ctypes.c_float),
+        ("bit_depth", ctypes.c_int),
         ("dither", ctypes.c_int),
         ("key0", ctypes.c_uint32),
         ("key1", ctypes.c_uint32),
@@ -117,20 +120,20 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(str(build()))
-        lib.dsd2dxd_div8_params_size.argtypes = []
-        lib.dsd2dxd_div8_params_size.restype = ctypes.c_int
-        if lib.dsd2dxd_div8_params_size() != ctypes.sizeof(Div8Params):
-            raise RuntimeError("Div8Params layout differs between "
-                               "kernels.py and csrc/fused_div8.cu")
-        lib.dsd2dxd_fused_div8.argtypes = [
+        lib.dsd2dxd_decim_params_size.argtypes = []
+        lib.dsd2dxd_decim_params_size.restype = ctypes.c_int
+        if lib.dsd2dxd_decim_params_size() != ctypes.sizeof(DecimParams):
+            raise RuntimeError("DecimParams layout differs between "
+                               "kernels.py and csrc/fused_decim.cu")
+        lib.dsd2dxd_fused_decim.argtypes = [
             ctypes.c_void_p,  # halo (C, H) u8
             ctypes.c_void_p,  # x (C, T) u8
             ctypes.c_void_p,  # taps f32, all stages
-            ctypes.c_void_p,  # out (T*C*3,) u8
+            ctypes.c_void_p,  # out (T_out*C*bytes_per_sample,) u8
             ctypes.c_void_p,  # peak f32[1], zeroed
-            ctypes.POINTER(Div8Params),
+            ctypes.POINTER(DecimParams),
             ctypes.c_void_p,  # cudaStream_t
         ]
-        lib.dsd2dxd_fused_div8.restype = ctypes.c_int
+        lib.dsd2dxd_fused_decim.restype = ctypes.c_int
         _lib = lib
         return lib

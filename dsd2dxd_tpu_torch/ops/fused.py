@@ -1,24 +1,38 @@
-"""The fused ÷8 step (K1a): raw DSD bytes -> 24-bit wire bytes in one pass.
+"""The fused decimation step (K1a-K1d): raw DSD bytes -> PCM wire bytes in
+one pass, for every pure ÷2^k chain.
 
-Counterpart of ``dsd2dxd_tpu/ops/fused.py`` for the main path: the G=1,
-no-tail, ``emit="planes"`` form of ``_build_kernel`` that
-``make_fused_step`` builds. The CUDA kernel is ``csrc/fused_div8.cu``;
-``fused_div8_reference`` below is its plain PyTorch version.
+Counterpart of ``dsd2dxd_tpu/ops/fused.py`` for the forms of
+``_build_kernel`` that ``make_fused_step`` builds for pure-decimation
+chains: G=1 (K1a), G=2/4 word lanes (K1b), the ÷64/÷128 à-trous tail
+(K1c), and the 16/20-bit and f32/FPD epilogues (K1d). The CUDA kernel is
+``csrc/fused_decim.cu``; ``fused_decim_reference`` below is its plain
+PyTorch version.
 
 Semantics carried over from the JAX kernel:
 
 - streaming state is the last ``chain_halo_bytes`` raw bytes of input per
   channel (overlap-save in the byte domain), primed with the DSD idle
-  byte 0x69 (fused.py:22-26), so no head of the stream is skipped;
+  byte 0x69 (fused.py:22-26), so no head of the stream is skipped. The
+  halo has the JAX kernel's size (halo lanes x G bytes), so a JAX state
+  hands over (``plan.state_from_jax``);
 - stage s computes y[j] = sum_k h[k] v[M j - k] with the products summed
-  pairwise in tap order (``plan.tree_sum``);
-- the peak is max |gain * y| over the whole fixed tile, real channels only;
-- round half to even, clip to [-2^23, 2^23 - 1].
+  pairwise in tap order (``plan.tree_sum``). Every stage is decimated
+  directly: output frame m is the à-trous tail's phase-0 lane, from the
+  same products;
+- the peak is max |gain * y| over the tile's first ``n_valid`` frames,
+  real channels only. (The JAX kernel takes it over the whole fixed tile,
+  so a partial final tile counts the filter's ringing into the idle pad;
+  the port does not inherit that.)
+- integer output: round half to even, clip to the depth; 20-bit is then
+  shifted << 4 into a 24-bit container (``containers/pack.py``);
+- 32-bit float: y as is, or with FPD y + tpdf * ulp, the ulp taken from
+  the exponent bits (fused.py:490-506).
 
-Dropped: the TPU's blocked ``PlaneLayout``, sublane batching and word
-groups. Both versions write frame-interleaved wire bytes directly, little
-endian for WAV and raw output, big endian for AIFF/AIFC. Dither is
-Philox4x32-10 (``ops/philox.py``), not the TPU's on-core bits.
+Dropped: the TPU's blocked ``PlaneLayout``, sublane batching, word lanes
+and the undecimated tail with its phase-0 extraction. Both versions write
+frame-interleaved wire bytes directly, little endian for WAV and raw
+output, big endian for AIFF/AIFC. Dither is Philox4x32-10
+(``ops/philox.py``), not the TPU's on-core bits.
 """
 
 from __future__ import annotations
@@ -27,11 +41,12 @@ import ctypes
 import math
 import threading
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from dsd2dxd_tpu.containers.pack import bytes_per_sample
 from dsd2dxd_tpu.filters.design import Stage
 from dsd2dxd_tpu.formats.dsd_types import DitherType
 from dsd2dxd_tpu.utils.errors import ConfigError
@@ -45,42 +60,88 @@ from dsd2dxd_tpu_torch.ops.plan import (
 from dsd2dxd_tpu_torch.ops.resample import StepConfig, unpack_bits
 
 IDLE_BYTE = 0x69  # DSD silence (alternating ±1)
-BLOCK_OUT = 512   # output frames per CUDA block
-BIT_DEPTH = 24
-_SCALE = float(1 << (BIT_DEPTH - 1))
+MAX_BLOCK_OUT = 512   # output frames per CUDA block, ÷8 to ÷32
+BLOCK_BITS = 1 << 14  # deeper chains: block_out * R stays at this
 _DITHER_CODE = {DitherType.NONE: 0, DitherType.TPDF: 1,
-                DitherType.RECTANGULAR: 2}
+                DitherType.RECTANGULAR: 2, DitherType.FPD: 3}
+_INT_DITHERS = (DitherType.NONE, DitherType.TPDF, DitherType.RECTANGULAR)
+_FLOAT_DITHERS = (DitherType.NONE, DitherType.FPD)
 
 # Kernel launches (incremented right after each successful launch, and
-# nowhere else): a run shows it went through the kernel by reading this.
+# nowhere else): a run shows it went through the kernel by reading these.
+# MODE_LAUNCHES counts each launch under the TPU-kernel modes it ports
+# (``kernel_modes``).
 KERNEL_LAUNCHES = 0
+MODE_LAUNCHES = {"K1a": 0, "K1b": 0, "K1c": 0, "K1d": 0}
 _launch_lock = threading.Lock()
 
 
-def fused_plan(chain: Sequence[Stage]):
-    """(n_head, groups, r_tail) = (len(chain), 1, 1) when the port's
-    kernel runs `chain` in one pass -- a pure ÷8 cascade of L=1 stages,
-    every stage stride-1 in the phase plan -- else None. (The JAX
-    ``fused_plan`` also covers G=2/4 word lanes and à-trous tails; the
-    port does not yet.)"""
+def reset_launch_counts() -> None:
+    global KERNEL_LAUNCHES
+    with _launch_lock:
+        KERNEL_LAUNCHES = 0
+        for k in MODE_LAUNCHES:
+            MODE_LAUNCHES[k] = 0
+
+
+def decimation(chain: Sequence[Stage]) -> Optional[int]:
+    """R when the port's kernel runs `chain` in one pass -- a pure ÷R
+    cascade of L=1 stages, R a power of two >= 8, at most
+    ``kernels.MAX_STAGES`` stages of < 256 taps -- else None. That is
+    every chain the JAX ``fused_plan`` covers without a rational stage."""
     if not chain or any(s.L != 1 for s in chain):
         return None
-    if math.prod(s.M for s in chain) != 8:
+    r = math.prod(s.M for s in chain)
+    if r < 8 or r & (r - 1):
         return None
-    plans = build_chain_plans(chain, p0=8)
-    if not all(p.rephase == 1 and p.lane_stride == 1 for p in plans):
+    if len(chain) > kernels.MAX_STAGES or any(s.n_taps > 255 for s in chain):
         return None
-    return (len(chain), 1, 1)
+    return r
+
+
+def kernel_modes(chain: Sequence[Stage], bit_depth: int) -> tuple[str, ...]:
+    """The TPU-kernel rows a launch for `chain` at `bit_depth` ports:
+    K1a (÷8 at 24 bit), K1b (÷16, ÷32), K1c (÷64 and deeper), and K1d
+    for every epilogue other than 24 bit."""
+    r = decimation(chain)
+    modes = []
+    if r == 8:
+        if bit_depth == 24:
+            modes.append("K1a")
+    else:
+        modes.append("K1b" if r <= 32 else "K1c")
+    if bit_depth != 24:
+        modes.append("K1d")
+    return tuple(modes)
+
+
+def block_out_for(chain: Sequence[Stage]) -> int:
+    """Output frames per CUDA block: 512 down to ÷32, then as many as
+    keep the block's stage-0 window at BLOCK_BITS input bits (256 at
+    ÷64, 128 at ÷128), so it fits in shared memory."""
+    return min(MAX_BLOCK_OUT, BLOCK_BITS // decimation(chain))
 
 
 def chain_halo_bytes(chain: Sequence[Stage]) -> int:
-    """Streaming-state bytes per channel, as the JAX ``_fused_layout``
-    sizes it for a G=1 no-tail chain: the summed stage history in bytes,
-    rounded up to 128."""
-    if fused_plan(chain) is None:
-        raise ValueError("chain not eligible for the fused ÷8 kernel")
-    hist = sum(p.hist_lanes for p in build_chain_plans(chain, p0=8))
-    return -(-hist // 128) * 128
+    """Streaming-state bytes per channel, sized as the JAX
+    ``_fused_layout`` sizes the halo of the same chain: the head's stage
+    history in G-byte lanes (p0 = 8G, G = min(R/8, 4)) plus the à-trous
+    tail's dilated context, rounded up to 128 lanes, times G."""
+    r = decimation(chain)
+    if r is None:
+        raise ValueError("chain not eligible for the fused kernel")
+    g = min(r // 8, 4)
+    cum, n_head = 1, 0
+    while cum < 8 * g:
+        cum *= chain[n_head].M
+        n_head += 1
+    hist = sum(p.hist_lanes
+               for p in build_chain_plans(chain[:n_head], p0=8 * g))
+    tail_ctx, dil = 0, 1
+    for s in chain[n_head:]:
+        tail_ctx += (s.n_taps - 1) * dil
+        dil *= s.M
+    return -(-(hist + tail_ctx) // 128) * 128 * g
 
 
 def init_fused_halo(chain: Sequence[Stage], channels: int,
@@ -91,8 +152,9 @@ def init_fused_halo(chain: Sequence[Stage], channels: int,
 
 
 def context_bits(chain: Sequence[Stage]) -> int:
-    """Input bits before output frame m's first bit that the cascade
-    reads (277 for the Equiripple DSD64 chain)."""
+    """Input bits before output frame m's newest bit that the cascade
+    reads (277 for Equiripple DSD64 -> 352.8k, ÷8; 4079 for Equiripple
+    DSD256 -> 88.2k, ÷128)."""
     off = 0
     for s in reversed(chain):
         off = s.M * off - (s.n_taps - 1)
@@ -105,13 +167,14 @@ class BlockLayout:
     its input, for the kernel (one CUDA block per group and channel) and
     for the plain version (one group spanning the tile).
 
-    Frame m0 of the group reads window bytes from m0 + byte_off on
-    (window = halo ++ tile), its stage-0 samples starting at bit bit_off
-    of the first byte; stage s emits out_len[s] samples, sample j
-    reading its input buffer from M_s j to M_s j + N_s - 1.
+    Frame m0 of the group reads window bytes from m0 * frame_bytes +
+    byte_off on (window = halo ++ tile), its stage-0 samples starting at
+    bit bit_off of the first byte; stage s emits out_len[s] samples,
+    sample j reading its input buffer from M_s j to M_s j + N_s - 1.
     """
 
     block_out: int
+    frame_bytes: int
     byte_off: int
     bit_off: int
     n_load_bytes: int
@@ -136,21 +199,24 @@ def block_layout(chain: Sequence[Stage], halo_bytes: int,
     if halo_bytes + byte0 < 0:
         raise ValueError(f"halo of {halo_bytes} bytes is shorter than the "
                          f"chain's {-off0}-bit context")
-    return BlockLayout(block_out=block_out, byte_off=halo_bytes + byte0,
-                       bit_off=bit_off,
+    return BlockLayout(block_out=block_out,
+                       frame_bytes=math.prod(s.M for s in chain) // 8,
+                       byte_off=halo_bytes + byte0, bit_off=bit_off,
                        n_load_bytes=-(-(bit_off + in_len0) // 8),
                        n_taps=tuple(s.n_taps for s in chain),
                        decim=tuple(s.M for s in chain),
                        out_len=tuple(out_len))
 
 
-def fused_div8_cascade(x_u8: torch.Tensor, halo: torch.Tensor,
-                       taps: Sequence[torch.Tensor], chain: Sequence[Stage],
-                       gain: float) -> torch.Tensor:
-    """Plain cascade: (C, T) f32 samples gain * y for the tile's T
-    output frames, from the (C, H) halo and (C, T) tile bytes."""
-    c, t = x_u8.shape
-    lay = block_layout(chain, halo.shape[1], t)
+def fused_decim_cascade(x_u8: torch.Tensor, halo: torch.Tensor,
+                        taps: Sequence[torch.Tensor], chain: Sequence[Stage],
+                        gain: float) -> torch.Tensor:
+    """Plain cascade: (C, T_out) f32 samples gain * y for the tile's
+    T_out = T * 8 / R output frames, from the (C, H) halo and (C, T)
+    tile bytes."""
+    t = x_u8.shape[1]
+    lay = block_layout(chain, halo.shape[1],
+                       t * 8 // math.prod(s.M for s in chain))
     window = torch.cat([halo, x_u8], dim=1)[:, lay.byte_off:]
     v = unpack_bits(window)[:, lay.bit_off:]
     for tp, n, m, o in zip(taps, lay.n_taps, lay.decim, lay.out_len):
@@ -164,33 +230,57 @@ def fused_div8_cascade(x_u8: torch.Tensor, halo: torch.Tensor,
     return v
 
 
-def _wire_bytes(q: torch.Tensor, big_endian: bool) -> torch.Tensor:
-    """(C, T) int32 -> (T*C*3,) frame-interleaved 24-bit bytes."""
-    parts = [q & 0xFF, (q >> 8) & 0xFF, (q >> 16) & 0xFF]
+def _wire_bytes(q: torch.Tensor, bps: int, big_endian: bool) -> torch.Tensor:
+    """(C, T) int32 words -> (T*C*bps,) frame-interleaved wire bytes,
+    the low `bps` bytes of each word."""
+    parts = [(q >> (8 * i)) & 0xFF for i in range(bps)]
     if big_endian:
         parts.reverse()
     return torch.stack(parts, dim=-1).to(torch.uint8).transpose(0, 1).reshape(-1)
 
 
-def fused_div8_reference(x_u8: torch.Tensor, halo: torch.Tensor,
-                         tile_key: int, taps: Sequence[torch.Tensor],
-                         chain: Sequence[Stage], cfg: StepConfig,
-                         big_endian: bool = False):
-    """Plain PyTorch version of the K1a kernel, on any device.
-
-    Returns (wire bytes (T*C*3,) uint8, peak f32 0-d, new halo)."""
-    gain = _gain32(cfg)
-    y = fused_div8_cascade(x_u8, halo, taps, chain, gain)
-    peak = torch.max(torch.abs(y))
-    v = y * _SCALE
+def decim_epilogue(y: torch.Tensor, tile_key: int, cfg: StepConfig,
+                   big_endian: bool = False, n_valid: Optional[int] = None):
+    """Plain version of the kernel's epilogue on the (C, T_out) f32
+    samples gain * y: returns (wire bytes (T_out*C*bps,) uint8, peak f32
+    0-d over the first n_valid frames; all frames for None)."""
+    c, t = y.shape
+    n = t if n_valid is None else max(0, min(int(n_valid), t))
+    peak = (y[:, :n].abs().amax() if n
+            else torch.zeros((), dtype=torch.float32, device=y.device))
     if cfg.dither is not DitherType.NONE:
-        c, t = y.shape
         u0, u1 = philox.uniforms(t, c, tile_key, device=y.device)
-        v = v + ((u0 + u1) - 1.0 if cfg.dither is DitherType.TPDF
-                 else u0 - 0.5)
-    q = torch.clamp(torch.round(v), -_SCALE, _SCALE - 1.0).to(torch.int32)
+    if cfg.bit_depth == 32:
+        v = y
+        if cfg.dither is DitherType.FPD:
+            ulp = (y.view(torch.int32) & 0x7F800000).view(torch.float32)
+            v = y + ((u0 + u1) - 1.0) * (ulp * 2.0 ** -23)
+        q = v.view(torch.int32)
+    else:
+        scale = float(1 << (cfg.bit_depth - 1))
+        v = y * scale
+        if cfg.dither is DitherType.TPDF:
+            v = v + ((u0 + u1) - 1.0)
+        elif cfg.dither is DitherType.RECTANGULAR:
+            v = v + (u0 - 0.5)
+        q = torch.clamp(torch.round(v), -scale, scale - 1.0).to(torch.int32)
+        if cfg.bit_depth == 20:
+            q = q * 16  # 20 significant bits at the top of 24
+    return _wire_bytes(q, bytes_per_sample(cfg.bit_depth), big_endian), peak
+
+
+def fused_decim_reference(x_u8: torch.Tensor, halo: torch.Tensor,
+                          tile_key: int, taps: Sequence[torch.Tensor],
+                          chain: Sequence[Stage], cfg: StepConfig,
+                          big_endian: bool = False,
+                          n_valid: Optional[int] = None):
+    """Plain PyTorch version of the kernel, on any device.
+
+    Returns (wire bytes (T_out*C*bps,) uint8, peak f32 0-d, new halo)."""
+    y = fused_decim_cascade(x_u8, halo, taps, chain, _gain32(cfg))
+    wire, peak = decim_epilogue(y, tile_key, cfg, big_endian, n_valid)
     new_halo = x_u8[:, x_u8.shape[1] - halo.shape[1]:].clone()
-    return _wire_bytes(q, big_endian), peak, new_halo
+    return wire, peak, new_halo
 
 
 def _gain32(cfg: StepConfig) -> float:
@@ -198,44 +288,57 @@ def _gain32(cfg: StepConfig) -> float:
     return float(np.float32(10.0 ** (cfg.level_db / 20.0)))
 
 
-def check_step_config(chain: Sequence[Stage], cfg: StepConfig) -> None:
-    """Raise ConfigError for what K1a does not cover."""
-    if fused_plan(chain) is None:
-        raise ConfigError("the fused ÷8 kernel covers pure ÷8 chains only")
-    if cfg.bit_depth != BIT_DEPTH:
-        raise ConfigError(f"the fused ÷8 kernel emits 24-bit output, not "
-                          f"{cfg.bit_depth}-bit")
-    if cfg.dither not in _DITHER_CODE:
-        raise ConfigError(f"the fused ÷8 kernel has no {cfg.dither} path")
-    if any(s.n_taps > 255 for s in chain) or len(chain) > kernels.MAX_STAGES:
-        raise ConfigError(f"chain exceeds the kernel's {kernels.MAX_STAGES} "
-                          f"stages of < 256 taps")
-    if cfg.tile_bytes < chain_halo_bytes(chain):
-        raise ConfigError(f"tile of {cfg.tile_bytes} bytes is shorter "
-                          f"than the {chain_halo_bytes(chain)}-byte halo")
-
-
-def _kernel_params(chain, cfg: StepConfig, halo_bytes: int, tile_key: int,
-                   big_endian: bool) -> kernels.Div8Params:
-    lay = block_layout(chain, halo_bytes, BLOCK_OUT)
+def _smem(lay: BlockLayout) -> tuple[int, int, int]:
+    """(buf_a, buf_b, smem_bytes): taps, then buffer A (stage 0's whole
+    bytes and the inputs of stages 2, 4, ...), then buffer B (stages 1,
+    3, ...), in f32 slots of the kernel's dynamic shared memory."""
     n_taps_total = sum(lay.n_taps)
-    # stage-s inputs: s even -> buffer A (stage 0 holds whole bytes), odd -> B
     in_len = lay.in_len
     a_len = max([lay.n_load_bytes * 8] + list(in_len[2::2]))
     b_len = max([0] + list(in_len[1::2]))
-    p = kernels.Div8Params()
+    return (n_taps_total, n_taps_total + a_len,
+            4 * (n_taps_total + a_len + b_len))
+
+
+def check_step_config(chain: Sequence[Stage], cfg: StepConfig) -> None:
+    """Raise ConfigError for what the kernel does not cover."""
+    r = decimation(chain)
+    if r is None:
+        raise ConfigError(f"the fused kernel covers pure ÷2^k chains (L=1, "
+                          f"÷8 and deeper, <= {kernels.MAX_STAGES} stages "
+                          f"of < 256 taps) only")
+    if cfg.bit_depth not in (16, 20, 24, 32):
+        raise ConfigError(f"no {cfg.bit_depth}-bit output")
+    allowed = _FLOAT_DITHERS if cfg.bit_depth == 32 else _INT_DITHERS
+    if cfg.dither not in allowed:
+        raise ConfigError(f"the fused kernel has no {cfg.dither} path at "
+                          f"{cfg.bit_depth} bit")
+    halo = chain_halo_bytes(chain)
+    if cfg.tile_bytes < halo:
+        raise ConfigError(f"tile of {cfg.tile_bytes} bytes is shorter "
+                          f"than the {halo}-byte halo")
+    if cfg.tile_bytes % (r // 8):
+        raise ConfigError(f"tile of {cfg.tile_bytes} bytes is not whole "
+                          f"frames of {r // 8} bytes")
+
+
+def _kernel_params(chain, cfg: StepConfig, halo_bytes: int, tile_key: int,
+                   big_endian: bool, n_valid: int) -> kernels.DecimParams:
+    lay = block_layout(chain, halo_bytes, block_out_for(chain))
+    p = kernels.DecimParams()
     p.n_stages = len(chain)
     p.channels = cfg.channels
-    p.tile_frames = cfg.tile_bytes
+    p.tile_bytes = cfg.tile_bytes
+    p.tile_frames = cfg.tile_bytes // lay.frame_bytes
+    p.frame_bytes = lay.frame_bytes
+    p.n_valid = n_valid
     p.halo_bytes = halo_bytes
     p.block_out = lay.block_out
     p.byte_off = lay.byte_off
     p.bit_off = lay.bit_off
     p.n_load_bytes = lay.n_load_bytes
-    p.n_taps_total = n_taps_total
-    p.buf_a = n_taps_total
-    p.buf_b = n_taps_total + a_len
-    p.smem_bytes = 4 * (n_taps_total + a_len + b_len)
+    p.n_taps_total = sum(lay.n_taps)
+    p.buf_a, p.buf_b, p.smem_bytes = _smem(lay)
     off = 0
     for s in range(len(chain)):
         p.n_taps[s] = lay.n_taps[s]
@@ -246,7 +349,7 @@ def _kernel_params(chain, cfg: StepConfig, halo_bytes: int, tile_key: int,
     gain = _gain32(cfg)
     p.gain = gain
     p.apply_gain = int(gain != 1.0)
-    p.scale = _SCALE
+    p.bit_depth = cfg.bit_depth
     p.dither = _DITHER_CODE[cfg.dither]
     p.key0 = tile_key & 0xFFFFFFFF
     p.key1 = (tile_key >> 32) & 0xFFFFFFFF
@@ -254,39 +357,49 @@ def _kernel_params(chain, cfg: StepConfig, halo_bytes: int, tile_key: int,
     return p
 
 
-def fused_div8_cuda(x_u8: torch.Tensor, halo: torch.Tensor, tile_key: int,
-                    taps_flat: torch.Tensor, chain: Sequence[Stage],
-                    cfg: StepConfig, big_endian: bool = False):
-    """Launch K1a on the current stream. Same contract as
-    ``fused_div8_reference``; raises if the launch fails."""
+def fused_decim_cuda(x_u8: torch.Tensor, halo: torch.Tensor, tile_key: int,
+                     taps_flat: torch.Tensor, chain: Sequence[Stage],
+                     cfg: StepConfig, big_endian: bool = False,
+                     n_valid: Optional[int] = None):
+    """Launch the kernel on the current stream. Same contract as
+    ``fused_decim_reference``; raises if the launch fails."""
     global KERNEL_LAUNCHES
     lib = kernels.load()
     c, t = x_u8.shape
-    out = torch.empty(t * c * 3, dtype=torch.uint8, device=x_u8.device)
+    t_out = t * 8 // decimation(chain)
+    n = t_out if n_valid is None else max(0, min(int(n_valid), t_out))
+    out = torch.empty(t_out * c * bytes_per_sample(cfg.bit_depth),
+                      dtype=torch.uint8, device=x_u8.device)
     peak = torch.zeros(1, dtype=torch.float32, device=x_u8.device)
-    params = _kernel_params(chain, cfg, halo.shape[1], tile_key, big_endian)
+    params = _kernel_params(chain, cfg, halo.shape[1], tile_key, big_endian,
+                            n)
     stream = torch.cuda.current_stream(x_u8.device).cuda_stream
-    rc = lib.dsd2dxd_fused_div8(halo.data_ptr(),
-                                x_u8.data_ptr(), taps_flat.data_ptr(),
-                                out.data_ptr(), peak.data_ptr(),
-                                ctypes.byref(params), stream)
+    rc = lib.dsd2dxd_fused_decim(halo.data_ptr(),
+                                 x_u8.data_ptr(), taps_flat.data_ptr(),
+                                 out.data_ptr(), peak.data_ptr(),
+                                 ctypes.byref(params), stream)
     if rc != 0:
-        raise RuntimeError(f"fused_div8 launch failed: CUDA error {rc}")
+        raise RuntimeError(f"fused_decim launch failed: CUDA error {rc}")
     with _launch_lock:
         KERNEL_LAUNCHES += 1
+        for mode in kernel_modes(chain, cfg.bit_depth):
+            MODE_LAUNCHES[mode] += 1
     new_halo = x_u8[:, t - halo.shape[1]:].clone()
     return out, peak[0], new_halo
 
 
 def make_fused_step(chain: Sequence[Stage], cfg: StepConfig, device,
                     big_endian: bool = False):
-    """The fused ÷8 step for `chain` and `cfg` (24-bit, TPDF/RECT/NONE).
+    """The fused step for `chain` and `cfg`: 16/20/24-bit with
+    TPDF/RECT/NONE, or 32-bit float with NONE/FPD.
 
-    step(x_u8 (C, tile) uint8, halo (C, halo_bytes) uint8, tile_key) ->
-        (wire bytes (tile*C*3,) uint8, peak f32 0-d, new halo)
+    step(x_u8 (C, tile) uint8, halo (C, halo_bytes) uint8, tile_key,
+         n_valid=None) -> (wire bytes (T_out*C*bps,) uint8, peak f32 0-d,
+         new halo)
 
-    A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version. Nothing else is accepted, and nothing falls back.
+    ``n_valid`` bounds the frames the peak covers (all for None). A CUDA
+    tensor launches the kernel (or raises); a CPU tensor runs the plain
+    version. Nothing else is accepted, and nothing falls back.
     """
     chain = tuple(chain)
     check_step_config(chain, cfg)
@@ -297,7 +410,8 @@ def make_fused_step(chain: Sequence[Stage], cfg: StepConfig, device,
     taps = [p.taps.to(device) for p in params_from_chain(chain)]
     taps_flat = torch.cat(taps)
 
-    def step(x_u8: torch.Tensor, halo: torch.Tensor, tile_key: int):
+    def step(x_u8: torch.Tensor, halo: torch.Tensor, tile_key: int,
+             n_valid: Optional[int] = None):
         if (x_u8.dtype != torch.uint8 or halo.dtype != torch.uint8
                 or tuple(x_u8.shape) != (cfg.channels, cfg.tile_bytes)
                 or tuple(halo.shape) != (cfg.channels, halo_bytes)
@@ -311,11 +425,11 @@ def make_fused_step(chain: Sequence[Stage], cfg: StepConfig, device,
         if x_u8.device != device:
             raise ValueError(f"step built for {device}, got {x_u8.device}")
         if x_u8.is_cuda:
-            return fused_div8_cuda(x_u8, halo, tile_key, taps_flat, chain,
-                                   cfg, big_endian)
+            return fused_decim_cuda(x_u8, halo, tile_key, taps_flat, chain,
+                                    cfg, big_endian, n_valid)
         if x_u8.device.type == "cpu":
-            return fused_div8_reference(x_u8, halo, tile_key, taps, chain,
-                                        cfg, big_endian)
-        raise ConfigError(f"no fused ÷8 path on {x_u8.device}")
+            return fused_decim_reference(x_u8, halo, tile_key, taps, chain,
+                                         cfg, big_endian, n_valid)
+        raise ConfigError(f"no fused decimation path on {x_u8.device}")
 
     return step

@@ -3,7 +3,7 @@
 The counterpart of the TPU kernel's on-core PRNG (``_uniform01``,
 ``dsd2dxd_tpu/ops/fused.py:281``). The TPU's bits cannot be reproduced on
 another device, so the port uses a counter-based generator that the CUDA
-kernel (``csrc/fused_div8.cu``) implements line for line: on the card the
+kernel (``csrc/fused_decim.cu``) implements line for line: on the card the
 kernel and this plain version draw identical noise.
 
 - Key: the two 32-bit halves of ``tile_key(file_seed, tile_idx)``, a
@@ -11,7 +11,8 @@ kernel and this plain version draw identical noise.
   31 bits, ``sharded.py:_fused_seeds``; this does not).
 - Counter: (frame, channel, 0, 0), frame counted within the tile.
 - Uniforms: ``(x >> 8) * 2**-24`` in [0, 1), exact in f32.
-  TPDF = (u0 + u1) - 1, RECT = u0 - 0.5, in LSB units.
+  TPDF = (u0 + u1) - 1, RECT = u0 - 0.5, in LSB units; FPD = TPDF in
+  units of the sample's ulp.
 
 All arithmetic is on int64 tensors holding 32-bit values; the 32x32-bit
 products are split into 16-bit halves so that no intermediate leaves

@@ -156,10 +156,14 @@ def params_from_chain(chain: Sequence[Stage], p0: int = 8) -> tuple[StageParams,
 
 
 def state_from_jax(halo: np.ndarray) -> torch.Tensor:
-    """A JAX fused halo ((C, halo_bytes) uint8, as ``make_fused_step``
-    returns it for a G=1 chain) as the port's streaming state."""
+    """A JAX fused halo as the port's streaming state. The JAX step keeps
+    (C, halo_lanes) words of G stream bytes -- uint8, uint16 or uint32
+    for G = 1, 2, 4, as ``init_fused_halo`` makes them -- which are the
+    little-endian view of the last halo_lanes * G input bytes; the port
+    keeps those bytes, (C, halo_lanes * G) uint8."""
     a = np.asarray(halo)
-    if a.ndim != 2 or a.dtype != np.uint8:
-        raise ValueError(f"want a (C, halo_bytes) uint8 halo, got "
+    if a.ndim != 2 or a.dtype.kind != "u" or a.dtype.itemsize not in (1, 2, 4):
+        raise ValueError(f"want a (C, halo_lanes) uint8/16/32 halo, got "
                          f"{a.shape} {a.dtype}")
-    return torch.from_numpy(np.ascontiguousarray(a).copy())
+    le = np.ascontiguousarray(a, dtype=a.dtype.newbyteorder("<"))
+    return torch.from_numpy(le.view(np.uint8).copy())

@@ -1,6 +1,7 @@
-"""Conversion engine of the port: DSD in, 24-bit PCM wire bytes out.
+"""Conversion engine of the port: DSD in, 16/20/24-bit or 32-bit float PCM
+wire bytes out, for every pure ÷2^k chain.
 
-Counterpart of ``dsd2dxd_tpu/pipeline/engine.py`` for the main path
+Counterpart of ``dsd2dxd_tpu/pipeline/engine.py`` for the ported slice
 (``_file_seed``, ``_tile_bytes_for``, ``_cached_step``, ``Converter.new`` /
 ``from_container``, ``_run``, ``_drain``, ``do_conversion``), with the same
 API plus an explicit ``device``.
@@ -8,10 +9,10 @@ API plus an explicit ``device``.
 Pipeline on a CUDA device, per tile t (ring of MAX_PENDING_DRAINS + 1
 slots): the host reads and bit-normalises the tile into a pinned buffer;
 a copy stream uploads it (``non_blocking``) and records an event; the
-compute stream waits on that event, launches the fused ÷8 kernel and
-copies the wire bytes and the peak back into pinned buffers; one drain
-thread waits for that copy and writes ``bytes[:n_valid * C * 3]`` in
-stream order, while the main thread already reads tile t+1. At most
+compute stream waits on that event, launches the fused decimation kernel
+and copies the wire bytes and the peak back into pinned buffers; one
+drain thread waits for that copy and writes ``bytes[:n_valid * C * bps]``
+in stream order, while the main thread already reads tile t+1. At most
 MAX_PENDING_DRAINS drains are outstanding. On the CPU (only when asked
 for by name) the same loop runs the plain version synchronously.
 
@@ -36,6 +37,7 @@ from typing import BinaryIO, Callable, Optional
 import numpy as np
 import torch
 
+from dsd2dxd_tpu.containers.pack import bytes_per_sample
 from dsd2dxd_tpu.filters.design import chain_ratio, get_chain
 from dsd2dxd_tpu.formats.discover import build_output_path
 from dsd2dxd_tpu.formats.dsd_types import (
@@ -83,7 +85,7 @@ def _tile_bytes_for(chain, target_bytes: int) -> int:
     """Tile size (bytes/channel): at least `target_bytes`, a whole number
     of the chain's lane unit and of the kernel's output block."""
     unit_bits = math.lcm(chain_tile_unit_bits(build_chain_plans(chain)),
-                         fused.BLOCK_OUT * 8)
+                         fused.block_out_for(chain) * fused.decimation(chain))
     n_units = max(1, -(-target_bytes * 8 // unit_bits))
     return n_units * unit_bits // 8
 
@@ -110,19 +112,21 @@ def _unported(what: str, item: int) -> ConfigError:
 def check_slice(chain, bit_depth: int, dither: DitherType,
                 output: OutputType) -> None:
     """Raise ConfigError for a configuration outside the ported slice."""
-    if fused.fused_plan(chain) is None:
-        if any(s.L != 1 for s in chain):
-            raise _unported("the 48k-family rational chain", 6)
-        raise _unported("a chain deeper than ÷8 (word groups, à-trous "
-                        "tail)", 5)
+    if any(s.L != 1 for s in chain):
+        raise _unported("the 48k-family rational chain", 6)
     if output is OutputType.FLAC:
         raise _unported("FLAC output", 7)
     if dither is DitherType.NJAD:
         raise _unported("NJAD dither", 7)
-    if bit_depth != 24:
-        raise _unported(f"{bit_depth}-bit output", 5)
-    if dither is DitherType.FPD:
-        raise _unported("FPD dither", 5)
+
+
+def effective_dither(bit_depth: int, dither: DitherType) -> DitherType:
+    """The dither the JAX engine applies (``phase.finish_tile``): float
+    output takes FPD only and integer output TPDF or RECT only; any
+    other choice converts undithered."""
+    allowed = ((DitherType.FPD,) if bit_depth == 32
+               else (DitherType.TPDF, DitherType.RECTANGULAR))
+    return dither if dither in allowed else DitherType.NONE
 
 
 class _Staging:
@@ -130,12 +134,11 @@ class _Staging:
     streams of the overlapped loop on one CUDA device."""
 
     def __init__(self, device: torch.device, channels: int, tile_bytes: int,
-                 n_slots: int):
+                 out_bytes: int, n_slots: int):
         self.n = n_slots
         self.copy_stream = torch.cuda.Stream(device)
         self.compute_stream = torch.cuda.Stream(device)
         shape = (channels, tile_bytes)
-        out_bytes = tile_bytes * channels * 3
         self.h_in = [torch.empty(shape, dtype=torch.uint8, pin_memory=True)
                      for _ in range(n_slots)]
         self.d_in = [torch.empty(shape, dtype=torch.uint8, device=device)
@@ -151,7 +154,8 @@ class _Staging:
         self.compute_stream.wait_stream(torch.cuda.current_stream(device))
         self.copy_stream.wait_stream(torch.cuda.current_stream(device))
 
-    def run(self, slot: int, planes: np.ndarray, step, state, key: int):
+    def run(self, slot: int, planes: np.ndarray, step, state, key: int,
+            n_valid: int):
         """Upload `planes` and run `step` on it; returns (pending drain
         item, new state). The drain item holds pinned host views that
         are valid once its event has completed."""
@@ -164,7 +168,7 @@ class _Staging:
             self.ev_h2d[slot].record(self.copy_stream)
         self.compute_stream.wait_event(self.ev_h2d[slot])
         with torch.cuda.stream(self.compute_stream):
-            out, peak, state = step(self.d_in[slot], state, key)
+            out, peak, state = step(self.d_in[slot], state, key, n_valid)
             self.ev_used[slot].record(self.compute_stream)
             self.h_out[slot].copy_(out, non_blocking=True)
             self.h_peak[slot].copy_(peak.reshape(1), non_blocking=True)
@@ -299,14 +303,17 @@ class Converter:
         tile_bytes = _tile_bytes_for(
             chain, self.tile_target_bytes * int(info.rate))
         cfg = StepConfig(channels=info.channels, tile_bytes=tile_bytes,
-                         bit_depth=self.bit_depth, dither=self.dither,
+                         bit_depth=self.bit_depth,
+                         dither=effective_dither(self.bit_depth, self.dither),
                          level_db=self.level_db)
         step, make_state = _cached_step(chain_key, cfg, self.device,
                                         big_endian)
         state = make_state()
         seed_base = _file_seed(self.input_path)
+        out_bytes = (tile_bytes * 8 // fused.decimation(chain)
+                     * info.channels * bytes_per_sample(self.bit_depth))
         staging = (_Staging(self.device, info.channels, tile_bytes,
-                            MAX_PENDING_DRAINS + 1)
+                            out_bytes, MAX_PENDING_DRAINS + 1)
                    if self.device.type == "cuda" else None)
 
         total_bytes = info.data_bytes_per_channel  # None for stdin
@@ -351,12 +358,12 @@ class Converter:
                 if staging is not None:
                     slot = tile_idx % staging.n
                     (ev, out, peak), state = staging.run(
-                        slot, planes, step, state, key)
+                        slot, planes, step, state, key, n_valid)
                 else:
                     ev = None
                     out, peak, state = step(
                         torch.from_numpy(np.ascontiguousarray(planes)),
-                        state, key)
+                        state, key, n_valid)
                 tile_idx += 1
                 drains.append(pool.submit(do_drain, (ev, out, peak, n_valid)))
                 while len(drains) > MAX_PENDING_DRAINS:
@@ -391,7 +398,8 @@ class Converter:
             ev.synchronize()
         peak = max(peak, float(tile_peak.reshape(-1)[0]))
         if n_valid > 0:
-            n = n_valid * self.source.info.channels * 3
+            n = (n_valid * self.source.info.channels
+                 * bytes_per_sample(self.bit_depth))
             write(out.numpy()[:n])
         return peak
 

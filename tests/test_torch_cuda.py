@@ -28,6 +28,17 @@ CELLS = {
     "D": (FilterType.DSD2PCM, DsdRate.DSD64, 352800),
     "E128": (FilterType.EQUIRIPPLE, DsdRate.DSD128, 705600),
 }
+# one chain per class beyond ÷8
+DEEP = {
+    "div16": (FilterType.EQUIRIPPLE, DsdRate.DSD64, 176400),
+    "div32": (FilterType.EQUIRIPPLE, DsdRate.DSD64, 88200),
+    "div64": (FilterType.EQUIRIPPLE, DsdRate.DSD128, 88200),
+    "div128": (FilterType.EQUIRIPPLE, DsdRate.DSD256, 88200),
+}
+EPILOGUES = [(bits, dither) for bits in (16, 20, 24)
+             for dither in (DitherType.NONE, DitherType.TPDF,
+                            DitherType.RECTANGULAR)] + [
+    (32, DitherType.NONE), (32, DitherType.FPD)]
 
 
 @pytest.fixture
@@ -37,59 +48,133 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _decode(wire: torch.Tensor) -> np.ndarray:
-    b = wire.cpu().numpy().reshape(-1, 3).astype(np.int64)
+def _decode(wire: torch.Tensor, bit_depth: int = 24) -> np.ndarray:
+    """Little-endian wire bytes -> int64 samples (16/20/24 bit, 20-bit
+    shifted back down) or float64 (32-bit float)."""
+    b = wire.cpu().numpy()
+    if bit_depth == 32:
+        return b.view("<f4").astype(np.float64)
+    if bit_depth == 16:
+        return b.view("<i2").astype(np.int64)
+    b = b.reshape(-1, 3).astype(np.int64)
     v = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
-    return np.where(v >= 1 << 23, v - (1 << 24), v)
+    v = np.where(v >= 1 << 23, v - (1 << 24), v)
+    return v >> 4 if bit_depth == 20 else v
 
 
-@pytest.mark.parametrize("cell", list(CELLS))
-@pytest.mark.parametrize("tile", [1 << 20, 3000])  # 3000: ragged last block
-def test_kernel_matches_plain_on_card(cuda_device, cell, tile):
-    """K1a against its plain version on the same card inputs: NONE
-    within 5 LSB, TPDF with the same key within 1 LSB, peak within 1e-4,
-    and the launch counted."""
-    chain = get_chain(*CELLS[cell])
-    rng = np.random.default_rng(12)
-    taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32),
-                         device=cuda_device) for s in chain]
-    for dither in (DitherType.NONE, DitherType.TPDF):
-        cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=24,
+def _ragged(chain, tile):
+    """`tile` cut down to whole output frames of the chain."""
+    fb = fused.decimation(chain) // 8
+    return tile // fb * fb
+
+
+def _check_against_plain(dev, chain, tile, epilogues, seed=12):
+    """Kernel against its plain version on the same card inputs, two
+    streamed tiles per epilogue: NONE within 5 LSB, TPDF/RECT with the
+    same key within 1 LSB, f32 NONE and FPD bit-equal, peak within 1e-4,
+    the launch counted."""
+    rng = np.random.default_rng(seed)
+    taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32), device=dev)
+            for s in chain]
+    for bits, dither in epilogues:
+        cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=bits,
                          dither=dither, level_db=-1.5)
-        step = fused.make_fused_step(chain, cfg, cuda_device)
-        h = fused.init_fused_halo(chain, 2, cuda_device)
+        step = fused.make_fused_step(chain, cfg, dev)
+        h = fused.init_fused_halo(chain, 2, dev)
         for t in range(2):
             x = torch.from_numpy(rng.integers(0, 256, (2, tile),
-                                              dtype=np.uint8)).to(cuda_device)
+                                              dtype=np.uint8)).to(dev)
             key = philox.tile_key(99, t)
             before = fused.KERNEL_LAUNCHES
             wk, pk, hk = step(x, h, key)
             assert fused.KERNEL_LAUNCHES == before + 1
-            wr, pr, hr = fused.fused_div8_reference(x, h, key, taps, chain,
-                                                    cfg)
+            wr, pr, hr = fused.fused_decim_reference(x, h, key, taps, chain,
+                                                     cfg)
             torch.cuda.synchronize()
-            d = np.abs(_decode(wk) - _decode(wr))
-            assert d.max() <= (5 if dither is DitherType.NONE else 1)
+            if bits == 32:
+                assert torch.equal(wk, wr), (bits, dither)
+            else:
+                d = np.abs(_decode(wk, bits) - _decode(wr, bits))
+                assert d.max() <= (5 if dither is DitherType.NONE else 1)
             assert abs(float(pk) - float(pr)) <= 1e-4
             assert torch.equal(hk, hr)
             h = hk
 
 
-def test_big_endian_bytes_on_card(cuda_device):
-    chain = get_chain(*CELLS["E"])
-    cfg = StepConfig(channels=2, tile_bytes=8192, bit_depth=24,
+@pytest.mark.parametrize("cell", list(CELLS))
+@pytest.mark.parametrize("tile", [1 << 20, 3000])  # 3000: ragged last block
+def test_kernel_matches_plain_on_card(cuda_device, cell, tile):
+    """K1a against its plain version: 24-bit NONE and TPDF."""
+    _check_against_plain(cuda_device, get_chain(*CELLS[cell]), tile,
+                         [(24, DitherType.NONE), (24, DitherType.TPDF)])
+
+
+@pytest.mark.parametrize("cell", list(DEEP))
+@pytest.mark.parametrize("tile", [1 << 20, 3000])
+def test_every_epilogue_matches_plain_on_card(cuda_device, cell, tile):
+    """K1b/K1c/K1d: one chain per class x every epilogue."""
+    chain = get_chain(*DEEP[cell])
+    _check_against_plain(cuda_device, chain, _ragged(chain, tile), EPILOGUES)
+
+
+def test_mode_counts_on_card(cuda_device):
+    chain = get_chain(*DEEP["div64"])
+    cfg = StepConfig(channels=2, tile_bytes=8192, bit_depth=20,
                      dither=DitherType.TPDF, level_db=0.0)
+    step = fused.make_fused_step(chain, cfg, cuda_device)
+    x = torch.full((2, 8192), 0x69, dtype=torch.uint8, device=cuda_device)
+    before = dict(fused.MODE_LAUNCHES)
+    step(x, fused.init_fused_halo(chain, 2, cuda_device), 1)
+    after = fused.MODE_LAUNCHES
+    assert {k: after[k] - before[k] for k in after} == {
+        "K1a": 0, "K1b": 0, "K1c": 1, "K1d": 1}
+
+
+@pytest.mark.parametrize("cell", ["E", "div16", "div128"])
+def test_partial_tile_peak_masked_on_card(cuda_device, cell):
+    """A full-scale burst that ends mid-tile, shorter than the filter's
+    delay, then the idle pad: the kernel's peak covers the first n_valid
+    frames only, as the plain version's, and the pad's frames ring far
+    higher."""
+    chain = get_chain(*{**CELLS, **DEEP}[cell])
+    fb = fused.decimation(chain) // 8
+    tile = 512 * fb * 4
+    n_valid = 512 * 3 - 100
+    x = np.full((2, tile), fused.IDLE_BYTE, dtype=np.uint8)
+    x[:, (n_valid - 8) * fb:n_valid * fb] = 0xFF
+    x = torch.from_numpy(x).to(cuda_device)
+    taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32),
+                         device=cuda_device) for s in chain]
+    cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=24,
+                     dither=DitherType.TPDF, level_db=0.0)
+    step = fused.make_fused_step(chain, cfg, cuda_device)
+    h = fused.init_fused_halo(chain, 2, cuda_device)
+    _w, pk, _h = step(x, h, 3, n_valid)
+    y = fused.fused_decim_cascade(x, h, taps, chain, 1.0)
+    torch.cuda.synchronize()
+    assert abs(float(pk) - float(y[:, :n_valid].abs().max())) <= 1e-6
+    assert float(y.abs().max()) > float(pk) + 0.5
+
+
+@pytest.mark.parametrize("bits", [16, 20, 24, 32])
+def test_big_endian_bytes_on_card(cuda_device, bits):
+    chain = get_chain(*DEEP["div16"] if bits != 24 else CELLS["E"])
+    dither = DitherType.FPD if bits == 32 else DitherType.TPDF
+    cfg = StepConfig(channels=2, tile_bytes=8192, bit_depth=bits,
+                     dither=dither, level_db=0.0)
     le = fused.make_fused_step(chain, cfg, cuda_device)
     be = fused.make_fused_step(chain, cfg, cuda_device, big_endian=True)
     x = torch.from_numpy(np.random.default_rng(1).integers(
         0, 256, (2, 8192), dtype=np.uint8)).to(cuda_device)
     h = fused.init_fused_halo(chain, 2, cuda_device)
-    a = le(x, h, 5)[0].reshape(-1, 3)
-    b = be(x, h, 5)[0].reshape(-1, 3)
+    bps = {16: 2, 20: 3, 24: 3, 32: 4}[bits]
+    a = le(x, h, 5)[0].reshape(-1, bps)
+    b = be(x, h, 5)[0].reshape(-1, bps)
     assert torch.equal(a, b.flip(1))
 
 
-def test_engine_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch):
+def _engine_equal(cuda_device, tmp_path, monkeypatch, rate, output_rate,
+                  bit_depth, dither):
     """The streamed CUDA pipeline (pinned buffers, copy and compute
     streams, drain thread) writes the same file as the CPU loop."""
     import dsd2dxd_tpu_torch.pipeline.engine as engine
@@ -98,15 +183,15 @@ def test_engine_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch):
 
     monkeypatch.setattr(engine, "_DEFAULT_TILE_TARGET", 32 * 1024)
     src = tmp_path / "tone.dsf"
-    write_dsf(src, synth_tone_dsd(1000.0, 0.5, 2_822_400, channels=2),
-              2_822_400, lsb_first=True)
+    write_dsf(src, synth_tone_dsd(1000.0, 0.5, rate.hz, channels=2),
+              rate.hz, lsb_first=True)
     outs = {}
     for dev in ("cpu", cuda_device):
         d = tmp_path / str(dev).replace(":", "")
         d.mkdir()
         conv = Converter.from_container(
-            bit_depth=24, output=OutputType.WAV, level_db=-1.0,
-            output_rate=352800, out_dir=d, dither=DitherType.TPDF,
+            bit_depth=bit_depth, output=OutputType.WAV, level_db=-1.0,
+            output_rate=output_rate, out_dir=d, dither=dither,
             filt=FilterType.EQUIRIPPLE, append_rate=False, base_dir=tmp_path,
             input_path=src, device=dev)
         before = fused.KERNEL_LAUNCHES
@@ -114,10 +199,27 @@ def test_engine_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch):
         launched = fused.KERNEL_LAUNCHES - before
         assert launched == (conv.stats["tiles"] if dev != "cpu" else 0)
         outs[str(dev)] = conv.output_path().read_bytes()
-    a, b = outs.values()
+    return outs.values()
+
+
+def test_engine_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch):
+    a, b = _engine_equal(cuda_device, tmp_path, monkeypatch, DsdRate.DSD64,
+                         352800, 24, DitherType.TPDF)
     assert len(a) == len(b)
     head = 44
     da = _decode(torch.frombuffer(bytearray(a[head:]), dtype=torch.uint8))
     db = _decode(torch.frombuffer(bytearray(b[head:]), dtype=torch.uint8))
+    assert a[:head] == b[:head]
+    assert np.abs(da - db).max() <= 1
+
+
+def test_engine_on_card_equals_cpu_deep_20bit(cuda_device, tmp_path,
+                                              monkeypatch):
+    a, b = _engine_equal(cuda_device, tmp_path, monkeypatch, DsdRate.DSD128,
+                         88200, 20, DitherType.TPDF)
+    assert len(a) == len(b)
+    head = 44
+    da = _decode(torch.frombuffer(bytearray(a[head:]), dtype=torch.uint8), 20)
+    db = _decode(torch.frombuffer(bytearray(b[head:]), dtype=torch.uint8), 20)
     assert a[:head] == b[:head]
     assert np.abs(da - db).max() <= 1

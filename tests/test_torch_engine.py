@@ -2,6 +2,9 @@
 dsd2dxd_tpu_torch/cli) against the JAX engine, plus the configurations
 the port refuses."""
 
+import io
+import sys
+import types
 import wave
 from pathlib import Path
 
@@ -142,9 +145,15 @@ def test_device_none_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(bit_depth=16), dict(bit_depth=20), dict(bit_depth=32),
-    dict(dither=DitherType.FPD), dict(dither=DitherType.NJAD),
-    dict(output=OutputType.FLAC), dict(output_rate=176400),
+    # what stays unported: FLAC and NJAD (item 7), the 48k family (item 6),
+    # at every depth, dither and word-lane chain
+    dict(bit_depth=16, output=OutputType.FLAC),
+    dict(bit_depth=20, dither=DitherType.NJAD),
+    dict(bit_depth=32, output_rate=192000),
+    dict(bit_depth=32, dither=DitherType.FPD, output_rate=384000),
+    dict(dither=DitherType.NJAD),
+    dict(output=OutputType.FLAC), dict(output_rate=176400,
+                                      output=OutputType.FLAC),
     dict(output_rate=96000),
 ], ids=["16bit", "20bit", "32bit", "FPD", "NJAD", "FLAC", "G2", "48k"])
 def test_unported_configs_raise(tone_dsd64_stereo_dsf, tmp_path, kw):
@@ -176,3 +185,130 @@ def test_stdout_raw_equals_wav_payload(tone_dsd64_stereo_dsf, tmp_path,
     wav = conv.output_path().read_bytes()
     assert len(raw) == 176400 * 2 * 3
     assert wav[44:] == raw
+
+
+# -- the rest of the 44.1k family: ÷16..÷128, 16/20/32-bit -------------------
+
+def _stdin(monkeypatch, data: bytes) -> None:
+    monkeypatch.setattr(sys, "stdin",
+                        types.SimpleNamespace(buffer=io.BytesIO(data)))
+
+
+def _raw_interleaved(dsf: Path) -> bytes:
+    """The .dsf's stereo stream as raw interleaved MSB-first DSD (what
+    BASELINE config 2 pipes in)."""
+    from dsd2dxd_tpu.pipeline.engine import open_container
+
+    src = open_container(dsf)
+    parts = []
+    while (p := src.read(1 << 16)) is not None:
+        parts.append(p)
+    return np.concatenate(parts, axis=1).T.tobytes()
+
+
+def _stdin_convert(cls, monkeypatch, capsysbinary, data, rate, bits,
+                   **kw) -> bytes:
+    _stdin(monkeypatch, data)
+    conv = cls.new(bit_depth=bits, output=OutputType.STDOUT, level_db=-1.0,
+                   output_rate=rate, out_dir=None, dither=DitherType.NONE,
+                   fmt=FmtType.INTERLEAVED, endian=Endianness.MSB_FIRST,
+                   input_rate=DsdRate.DSD64, block_size=4096, channels=2,
+                   filt=FilterType.EQUIRIPPLE, append_rate=False,
+                   base_dir=Path.cwd(), input_path=None, **kw)
+    capsysbinary.readouterr()
+    conv.do_conversion()
+    return capsysbinary.readouterr().out
+
+
+def _s24(raw: bytes, big_endian=False) -> np.ndarray:
+    b = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 3).astype(np.int64)
+    if big_endian:
+        b = b[:, ::-1]
+    v = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
+    return np.where(v >= 1 << 23, v - (1 << 24), v).reshape(-1, 2)
+
+
+def test_raw_stdin_div16_matches_jax_converter(tone_dsd64_stereo_dsf,
+                                               small_tiles, monkeypatch,
+                                               capsysbinary):
+    """BASELINE config 2's path: raw interleaved DSD64 on stdin -> s24le
+    176.4 kHz on stdout (a ÷16 chain, K1b), against the JAX Converter."""
+    data = _raw_interleaved(tone_dsd64_stereo_dsf)
+    t = _stdin_convert(TConverter, monkeypatch, capsysbinary, data, 176400,
+                       24, device="cpu")
+    j = _stdin_convert(JConverter, monkeypatch, capsysbinary, data, 176400,
+                       24)
+    assert len(t) == len(j) == 88200 * 2 * 3
+    tv, jv = _s24(t), _s24(j)
+    assert np.abs(tv[HEAD_SKIP:] - jv[HEAD_SKIP:]).max() <= 5
+    assert np.abs(tv).max() > 1 << 21
+
+
+def test_cli_stdin_config2(tone_dsd64_stereo_dsf, small_tiles, monkeypatch,
+                           capsysbinary):
+    """`dsd2dxd-torch -f I -r 176400 < in.dsd > out.raw` through the CLI's
+    stdin entry equals the Converter's stream at TPDF (same file seed)."""
+    data = _raw_interleaved(tone_dsd64_stereo_dsf)
+    _stdin(monkeypatch, data)
+    capsysbinary.readouterr()
+    assert trun(["-f", "I", "-r", "176400", "-q"], device="cpu") == 0
+    raw = capsysbinary.readouterr().out
+    assert len(raw) == 88200 * 2 * 3
+    ref = _stdin_convert(TConverter, monkeypatch, capsysbinary, data, 176400,
+                         24, device="cpu")
+    v, r = _s24(raw), _s24(ref)
+    # TPDF against NONE, at -0 dB against -1 dB: the tone, 1 kHz
+    spec = np.abs(np.fft.rfft(v[HEAD_SKIP:, 1].astype(np.float64)))
+    freqs = np.fft.rfftfreq(len(v) - HEAD_SKIP, 1 / 176400)
+    assert abs(freqs[np.argmax(spec)] - 1000.0) < 5.0
+    gain = 10 ** (1 / 20)
+    assert np.abs(v[HEAD_SKIP:] - r[HEAD_SKIP:] * gain).max() <= 3
+
+
+@pytest.mark.parametrize("bits,output,rate,dither", [
+    (20, OutputType.WAV, 88200, DitherType.NONE),      # ÷32
+    (32, OutputType.AIFC, 176400, DitherType.FPD),     # ÷16, big-endian f32
+    (16, OutputType.AIFF, 88200, DitherType.NONE),     # ÷32, big-endian s16
+], ids=["20bit-wav", "32bit-aifc", "16bit-aiff"])
+def test_files_match_jax_converter(tone_dsd64_stereo_dsf, tmp_path,
+                                   small_tiles, bits, output, rate, dither):
+    """16/20-bit and 32-bit float files against the JAX Converter:
+    headers byte-identical, samples within 5 LSB (float: 2e-6, which
+    the FPD ulp noise of either side stays far below)."""
+    t_dir, j_dir = tmp_path / "t", tmp_path / "j"
+    t_dir.mkdir()
+    j_dir.mkdir()
+    convs = []
+    for cls, d, kw in ((TConverter, t_dir, dict(device="cpu")),
+                       (JConverter, j_dir, {})):
+        conv = cls.from_container(
+            bit_depth=bits, output=output, level_db=-1.0, output_rate=rate,
+            out_dir=d, dither=dither, filt=FilterType.EQUIRIPPLE,
+            append_rate=False, base_dir=tone_dsd64_stereo_dsf.parent,
+            input_path=tone_dsd64_stereo_dsf, **kw)
+        conv.do_conversion()
+        convs.append(conv.output_path().read_bytes())
+    t, j = convs
+    be = output is not OutputType.WAV
+    tag = b"SSND" if be else b"data"
+    off = t.index(tag) + 8 + (8 if be else 0)
+    assert t[:off] == j[:off] and len(t) == len(j)
+    n = int(0.5 * rate)
+    if bits == 32:
+        dt = ">f4" if be else "<f4"
+        tv = np.frombuffer(t[off:], dtype=dt).reshape(-1, 2)
+        jv = np.frombuffer(j[off:], dtype=dt).reshape(-1, 2)
+        tol = 2e-6
+    elif bits == 16:
+        dt = ">i2" if be else "<i2"
+        tv = np.frombuffer(t[off:], dtype=dt).astype(np.int64).reshape(-1, 2)
+        jv = np.frombuffer(j[off:], dtype=dt).astype(np.int64).reshape(-1, 2)
+        tol = 5
+    else:
+        assert all(b & 0x0F == 0 for b in t[off::3])  # 20 bits on top
+        tv, jv = _s24(t[off:], be) >> 4, _s24(j[off:], be) >> 4
+        tol = 5
+    assert tv.shape == jv.shape == (n, 2)
+    skip = HEAD_SKIP // (352800 // rate)
+    assert np.abs(tv[skip:] - jv[skip:]).max() <= tol
+    assert np.abs(tv).max() > 0.25 * (1 if bits == 32 else 1 << (bits - 1))

@@ -1,20 +1,32 @@
-"""The fused ÷8 step of the port (dsd2dxd_tpu_torch/ops/fused.py) against
-the JAX fused Pallas step, run in interpret mode on the CPU as
-tests/test_fused.py runs it; plus the Philox generator, the dither
-statistics, and the CUDA kernel's block layout (emulated here; the
-kernel itself runs on the card in tests/test_torch_cuda.py)."""
+"""The fused decimation step of the port (dsd2dxd_tpu_torch/ops/fused.py)
+against the JAX fused Pallas step, run in interpret mode on the CPU as
+tests/test_fused.py runs it, and against the JAX phase path; plus the
+Philox generator, the dither statistics, the epilogues, the masked peak,
+and the CUDA kernel's block layout (emulated here; the kernel itself runs
+on the card in tests/test_torch_cuda.py)."""
 
+import itertools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dsd2dxd_tpu.filters.design import get_chain
+from dsd2dxd_tpu.containers.pack import pack_int
+from dsd2dxd_tpu.filters.design import chain_ratio, get_chain
 from dsd2dxd_tpu.formats.dsd_types import DitherType, DsdRate, FilterType
 from dsd2dxd_tpu.ops import fused as jfused
+from dsd2dxd_tpu.ops.phase import (
+    build_chain_plans,
+    init_phase_hists,
+    make_phase_step,
+)
 from dsd2dxd_tpu.ops.resample import StepConfig as JStepConfig
+from dsd2dxd_tpu.ops.resample import quantize_int as jquantize_int
 from dsd2dxd_tpu.pipeline.transfer import interleave_planes_numpy
 from dsd2dxd_tpu.utils.errors import ConfigError
+from dsd2dxd_tpu_torch import kernels
 from dsd2dxd_tpu_torch.ops import fused as tfused
 from dsd2dxd_tpu_torch.ops import philox
 from dsd2dxd_tpu_torch.ops.plan import state_from_jax, tree_sum
@@ -24,8 +36,36 @@ E64 = (FilterType.EQUIRIPPLE, DsdRate.DSD64, 352800)
 X64 = (FilterType.XLD, DsdRate.DSD64, 352800)
 D64 = (FilterType.DSD2PCM, DsdRate.DSD64, 352800)
 E128 = (FilterType.EQUIRIPPLE, DsdRate.DSD128, 705600)
+E64_176 = (FilterType.EQUIRIPPLE, DsdRate.DSD64, 176400)    # ÷16, G=2
+E64_88 = (FilterType.EQUIRIPPLE, DsdRate.DSD64, 88200)      # ÷32, G=4
+X64_88 = (FilterType.XLD, DsdRate.DSD64, 88200)             # ÷32
+E128_88 = (FilterType.EQUIRIPPLE, DsdRate.DSD128, 88200)    # ÷64, à-trous
+C128_88 = (FilterType.CHEBYSHEV, DsdRate.DSD128, 88200)     # ÷64
+E256_88 = (FilterType.EQUIRIPPLE, DsdRate.DSD256, 88200)    # ÷128
+E512_352 = (FilterType.EQUIRIPPLE, DsdRate.DSD512, 352800)  # ÷64
 TILE = 16384 * 2   # two JAX grid blocks, as tests/test_fused.py
 LEVEL = -1.5
+
+
+def _all_decimation_chains():
+    """Every pure-decimation chain get_chain returns (all 20)."""
+    keys = []
+    for filt, rate, out in itertools.product(
+            FilterType, DsdRate, (88200, 176400, 352800, 705600, 1411200)):
+        try:
+            chain = get_chain(filt, rate, out)
+        except Exception:
+            continue
+        if all(s.L == 1 for s in chain):
+            keys.append((filt, rate, out))
+    return keys
+
+
+ALL_CHAINS = _all_decimation_chains()
+
+
+def _key_id(k):
+    return f"{k[0].name[0]}-{k[1].name}-{k[2]}"
 
 
 def _tiles(seed, n, channels=2, tile=TILE):
@@ -46,9 +86,22 @@ def _decode24(wire: bytes, big_endian=False) -> np.ndarray:
     return np.where(v >= 1 << 23, v - (1 << 24), v)
 
 
-def _cfg(tile=TILE, dither=DitherType.NONE, level=LEVEL, channels=2):
-    return StepConfig(channels=channels, tile_bytes=tile, bit_depth=24,
-                      dither=dither, level_db=level)
+def _cfg(tile=TILE, dither=DitherType.NONE, level=LEVEL, channels=2,
+         bit_depth=24):
+    return StepConfig(channels=channels, tile_bytes=tile,
+                      bit_depth=bit_depth, dither=dither, level_db=level)
+
+
+def _decode(wire: torch.Tensor, bit_depth: int, big_endian=False):
+    """(T*C*bps,) wire bytes -> int64 samples at the depth (20-bit
+    shifted back down) or float64 for 32-bit float."""
+    b = wire.numpy()
+    if bit_depth == 32:
+        return b.view(">f4" if big_endian else "<f4").astype(np.float64)
+    if bit_depth == 16:
+        return b.view(">i2" if big_endian else "<i2").astype(np.int64)
+    v = _decode24(b.tobytes(), big_endian)
+    return v >> 4 if bit_depth == 20 else v
 
 
 @pytest.mark.parametrize("key", [E64, X64, D64], ids=["E", "X", "D"])
@@ -65,8 +118,8 @@ def test_plain_cascade_matches_jax_fused_float(key):
     gain = tfused._gain32(_cfg())
     for t, x in enumerate(_tiles(5, 3)):
         oj, pj, h_j = jstep(x, h_j, t)
-        y = tfused.fused_div8_cascade(torch.from_numpy(x), h_t, _taps(chain),
-                                      chain, gain)
+        y = tfused.fused_decim_cascade(torch.from_numpy(x), h_t, _taps(chain),
+                                       chain, gain)
         h_t = torch.from_numpy(x[:, -halo_bytes:].copy())
         assert np.max(np.abs(y.numpy().T - np.asarray(oj))) <= 2e-6
         assert abs(float(y.abs().max()) - float(pj)) <= 1e-4
@@ -126,14 +179,15 @@ def _emulate_kernel_cascade(x, halo, chain, gain, block_out):
     buffers. Must equal the plain cascade bit for bit."""
     c, t = x.shape
     lay = tfused.block_layout(chain, halo.shape[1], block_out)
+    t_out = t // lay.frame_bytes
     window = torch.cat([halo, x], dim=1)
-    idle = torch.full((c, lay.n_load_bytes + block_out), tfused.IDLE_BYTE,
-                      dtype=torch.uint8)
+    idle = torch.full((c, lay.n_load_bytes + block_out * lay.frame_bytes),
+                      tfused.IDLE_BYTE, dtype=torch.uint8)
     window = torch.cat([window, idle], dim=1)  # reads past the end: idle
     taps = _taps(chain)
-    y = torch.empty(c, t)
-    for m0 in range(0, t, block_out):
-        wb = m0 + lay.byte_off
+    y = torch.empty(c, t_out)
+    for m0 in range(0, t_out, block_out):
+        wb = m0 * lay.frame_bytes + lay.byte_off
         v = tfused.unpack_bits(window[:, wb:wb + lay.n_load_bytes])
         v = v[:, lay.bit_off:]
         for tp, n, m, o in zip(taps, lay.n_taps, lay.decim, lay.out_len):
@@ -141,36 +195,61 @@ def _emulate_kernel_cascade(x, halo, chain, gain, block_out):
             hk = tp.tolist()
             v = tree_sum(v[:, n - 1 - k:n - 1 - k + (o - 1) * m + 1:m] * hk[k]
                          for k in range(n))
-        n_keep = min(block_out, t - m0)
+        n_keep = min(block_out, t_out - m0)
         y[:, m0:m0 + n_keep] = v[:, :n_keep] * gain if gain != 1.0 \
             else v[:, :n_keep]
     return y
 
 
+def _more_layout_cases():
+    """Every other chain of the 20 at its kernel block, two and a half
+    blocks per tile (ragged last block); three at a block of their own."""
+    cases = []
+    for key in ALL_CHAINS:
+        if key in (E64, X64, D64, E128):
+            continue
+        chain = get_chain(*key)
+        r = tfused.decimation(chain)
+        bo = tfused.block_out_for(chain)
+        cases.append(pytest.param(key, bo * r // 8 * 5 // 2, bo,
+                                  id=f"{_key_id(key)}-block"))
+    for key, tile, bo in [(E64_176, 1000, 37), (E256_88, 2048, 40),
+                          (C128_88, 1536, 9)]:
+        cases.append(pytest.param(key, tile, bo, id=f"{_key_id(key)}-{bo}"))
+    return cases
+
+
 @pytest.mark.parametrize("key,tile,block_out", [
-    (E64, 4096, tfused.BLOCK_OUT),
+    (E64, 4096, tfused.MAX_BLOCK_OUT),
     (X64, 3000, 512),   # ragged last block
     (D64, 2048, 300),
     (E128, 1500, 700),
+    *_more_layout_cases(),
 ])
 def test_kernel_block_layout_emulated(key, tile, block_out):
     chain = get_chain(*key)
     x = torch.from_numpy(_tiles(8, 1, tile=tile)[0])
     halo = torch.from_numpy(_tiles(9, 1, tile=tfused.chain_halo_bytes(chain))[0])
     gain = tfused._gain32(_cfg())
-    ref = tfused.fused_div8_cascade(x, halo, _taps(chain), chain, gain)
+    ref = tfused.fused_decim_cascade(x, halo, _taps(chain), chain, gain)
     emu = _emulate_kernel_cascade(x, halo, chain, gain, block_out)
     assert torch.equal(ref, emu)
 
 
-@pytest.mark.parametrize("key", [E64, X64, D64, E128],
-                         ids=["E", "X", "D", "E128"])
+@pytest.mark.parametrize(
+    "key", [E64, X64, D64, E128,
+            *(k for k in ALL_CHAINS if k not in (E64, X64, D64, E128))],
+    ids=["E", "X", "D", "E128",
+         *(_key_id(k) for k in ALL_CHAINS if k not in (E64, X64, D64, E128))])
 def test_kernel_params_fit_shared_memory(key):
     chain = get_chain(*key)
-    lay = tfused.block_layout(chain, 128, tfused.BLOCK_OUT)
-    p = tfused._kernel_params(chain, _cfg(tile=4096), 128, 0x1234_5678_9ABC_DEF0,
-                              False)
+    halo = tfused.chain_halo_bytes(chain)
+    lay = tfused.block_layout(chain, halo, tfused.block_out_for(chain))
+    p = tfused._kernel_params(chain, _cfg(tile=4096), halo,
+                              0x1234_5678_9ABC_DEF0, False, 100)
     assert p.byte_off == lay.byte_off >= 0
+    assert p.frame_bytes * 8 == tfused.decimation(chain)
+    assert p.tile_frames == 4096 // p.frame_bytes and p.n_valid == 100
     assert (p.key0, p.key1) == (0x9ABCDEF0, 0x12345678)
     assert p.buf_a == p.n_taps_total == sum(s.n_taps for s in chain)
     for s, n_in in enumerate(lay.in_len):
@@ -181,8 +260,10 @@ def test_kernel_params_fit_shared_memory(key):
             assert p.smem_bytes // 4 - p.buf_b >= n_in
         else:
             assert p.buf_b - p.buf_a >= n_in
-    assert p.smem_bytes <= 227 * 1024
-    assert lay.out_len[-1] == tfused.BLOCK_OUT
+    assert p.smem_bytes <= 227 * 1024  # an H100 block's shared memory
+    assert lay.out_len[-1] == p.block_out == tfused.block_out_for(chain)
+    assert p.block_out * tfused.decimation(chain) <= tfused.BLOCK_BITS
+    assert p.n_stages == len(chain) <= kernels.MAX_STAGES
 
 
 # -- Philox and dither ------------------------------------------------------
@@ -241,8 +322,8 @@ def test_dither_statistics_and_reproducible(dither, lo, hi):
     w1, _, _ = step(x, halo, k1)
     assert torch.equal(w0, w0b)
     assert not torch.equal(w0, w1)
-    f = tfused.fused_div8_cascade(x, halo, _taps(chain), chain,
-                                  tfused._gain32(cfg)).numpy().T.reshape(-1)
+    f = tfused.fused_decim_cascade(x, halo, _taps(chain), chain,
+                                   tfused._gain32(cfg)).numpy().T.reshape(-1)
     f = f.astype(np.float64) * 2 ** 23
     errs = []
     for w in (w0, w1):
@@ -265,8 +346,8 @@ def test_wrapper_cpu_runs_plain_and_counts_no_launch():
     x = torch.from_numpy(_tiles(11, 1, tile=4096)[0])
     halo = tfused.init_fused_halo(chain, 2)
     wire, peak, new_halo = step(x, halo, 0)
-    ref = tfused.fused_div8_reference(x, halo, 0, _taps(chain), chain,
-                                      _cfg(4096))
+    ref = tfused.fused_decim_reference(x, halo, 0, _taps(chain), chain,
+                                       _cfg(4096))
     assert torch.equal(wire, ref[0]) and float(peak) == float(ref[1])
     assert torch.equal(new_halo, x[:, -halo_bytes:])
     assert tfused.KERNEL_LAUNCHES == before
@@ -277,8 +358,10 @@ def test_wrapper_cpu_runs_plain_and_counts_no_launch():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(bit_depth=16), dict(bit_depth=32), dict(dither=DitherType.FPD),
-    dict(dither=DitherType.NJAD), dict(tile_bytes=64),
+    # FPD is float-only, TPDF integer-only; NJAD is a host requantizer
+    dict(bit_depth=16, dither=DitherType.FPD), dict(bit_depth=32),
+    dict(dither=DitherType.FPD), dict(dither=DitherType.NJAD),
+    dict(tile_bytes=64),
 ])
 def test_unported_step_configs_raise(bad):
     chain = get_chain(*E64)
@@ -290,11 +373,194 @@ def test_unported_step_configs_raise(bad):
 
 
 @pytest.mark.parametrize("key", [
-    (FilterType.EQUIRIPPLE, DsdRate.DSD64, 176400),
+    (FilterType.EQUIRIPPLE, DsdRate.DSD128, 192000),
     (FilterType.EQUIRIPPLE, DsdRate.DSD64, 96000),
 ])
 def test_chains_beyond_div8_raise(key):
+    """The 48k family's rational chains stay outside the kernel."""
     chain = get_chain(*key)
-    assert tfused.fused_plan(chain) is None
+    assert tfused.decimation(chain) is None
     with pytest.raises(ConfigError):
         tfused.make_fused_step(chain, _cfg(4096), "cpu")
+
+
+# -- every pure ÷2^k chain: K1b, K1c, K1d ------------------------------------
+
+@pytest.mark.parametrize("key", ALL_CHAINS, ids=_key_id)
+def test_halo_equals_jax(key):
+    """The port's state is the JAX kernel's halo, byte for byte in size,
+    for all 20 chains (so a JAX state hands over)."""
+    chain = get_chain(*key)
+    assert tfused.decimation(chain) is not None
+    assert tfused.chain_halo_bytes(chain) == jfused.chain_halo_bytes(chain)
+    init = state_from_jax(jfused.init_fused_halo(chain, 2))
+    assert torch.equal(init, tfused.init_fused_halo(chain, 2))
+
+
+@pytest.mark.parametrize("key", [E64_176, E64_88, X64_88, E128_88, E256_88,
+                                 E512_352, C128_88], ids=_key_id)
+def test_plain_cascade_matches_jax_phase_path(key):
+    """The plain cascade against the JAX phase path (XLA, no Pallas) in
+    f32: within 2e-6 after tile 0's warm-up (idle-primed against
+    zero-primed histories), peaks within 1e-4."""
+    chain = get_chain(*key)
+    jcfg = JStepConfig(channels=2, tile_bytes=TILE, bit_depth=32,
+                       dither=DitherType.NONE, level_db=LEVEL)
+    pstep = make_phase_step(chain, jcfg)
+    h_p = init_phase_hists(build_chain_plans(chain), 2)
+    halo_bytes = tfused.chain_halo_bytes(chain)
+    h_t = tfused.init_fused_halo(chain, 2)
+    gain = tfused._gain32(_cfg())
+    skip = int(halo_bytes * 8 * chain_ratio(chain)) + 1
+    for t, x in enumerate(_tiles(13, 3)):
+        op, pp, h_p = pstep(x, h_p, jax.random.PRNGKey(t))
+        y = tfused.fused_decim_cascade(torch.from_numpy(x), h_t,
+                                       _taps(chain), chain, gain)
+        h_t = torch.from_numpy(x[:, -halo_bytes:].copy())
+        op = np.asarray(op)
+        assert y.shape == (2, op.shape[0])
+        s = skip if t == 0 else 0
+        assert np.max(np.abs(y.numpy().T[s:] - op[s:])) <= 2e-6
+        if t > 0:
+            assert abs(float(y.abs().max()) - float(pp)) <= 1e-4
+
+
+@pytest.mark.parametrize("key", [E64_176, E128_88], ids=["G2", "atrous"])
+def test_port_matches_jax_fused_kernel_and_state_handover(key):
+    """The port's step against the JAX Pallas kernel in interpret mode,
+    for a word-lane (G=2) chain and an à-trous (÷64) chain: 24-bit NONE
+    within 5 LSB, 32-bit within 2e-6, peaks within 1e-4, equal halos;
+    then JAX tile 0 -> state_from_jax on the u16/u32 halo -> port tile 1."""
+    chain = get_chain(*key)
+    g = jfused.fused_plan(chain)[1]
+    x0, x1, x2 = _tiles(14, 3)
+    for bits, tol in ((24, 5), (32, 2e-6)):
+        jcfg = JStepConfig(channels=2, tile_bytes=TILE, bit_depth=bits,
+                           dither=DitherType.NONE, level_db=LEVEL)
+        jstep, halo_bytes = jfused.make_fused_step(chain, jcfg,
+                                                   interpret=True)
+        assert halo_bytes == tfused.chain_halo_bytes(chain)
+        step = tfused.make_fused_step(chain, _cfg(bit_depth=bits), "cpu")
+        h_j = jnp.asarray(jfused.init_fused_halo(chain, 2))
+        h_t = tfused.init_fused_halo(chain, 2)
+        for x in (x0, x1):
+            oj, pj, h_j = jstep(jfused.prep_input(x, g), h_j, 0)
+            wire, pt, h_t = step(torch.from_numpy(x), h_t, 0)
+            d = np.abs(_decode(wire, bits) - np.asarray(oj).reshape(-1))
+            assert d.max() <= tol
+            assert abs(float(pt) - float(pj)) <= 1e-4
+            assert torch.equal(state_from_jax(np.asarray(h_j)), h_t)
+        # hand the JAX state over for tile 2
+        state = state_from_jax(np.asarray(h_j))
+        oj2, pj2, _ = jstep(jfused.prep_input(x2, g), h_j, 0)
+        wire2, pt2, _ = step(torch.from_numpy(x2), state, 0)
+        assert np.abs(_decode(wire2, bits)
+                      - np.asarray(oj2).reshape(-1)).max() <= tol
+        assert abs(float(pt2) - float(pj2)) <= 1e-4
+
+
+@pytest.mark.parametrize("bits", [16, 20])
+@pytest.mark.parametrize("big_endian", [False, True], ids=["LE", "BE"])
+def test_int_epilogue_bit_equal_to_jax_quantize_and_pack(bits, big_endian):
+    """16- and 20-bit NONE: the port's epilogue equals the JAX
+    quantize_int followed by containers/pack.pack_int, byte for byte, on
+    the same f32 samples (some driven into the clip)."""
+    chain = get_chain(*E64_176)
+    x = torch.from_numpy(_tiles(15, 1, tile=8192)[0])
+    y = tfused.fused_decim_cascade(x, tfused.init_fused_halo(chain, 2),
+                                   _taps(chain), chain, 1.0) * 3.0
+    assert float(y.abs().max()) > 1.0
+    wire, _ = tfused.decim_epilogue(y, 0, _cfg(tile=8192, bit_depth=bits),
+                                    big_endian)
+    q = np.asarray(jquantize_int(jnp.asarray(y.numpy()), bits, None))
+    assert wire.numpy().tobytes() == pack_int(q.T, bits, big_endian)
+
+
+def test_fpd_statistics_and_reproducible():
+    """32-bit FPD: every sample within 1 ulp of the undithered y, the
+    error's mean near 0 ulp, noise in most samples; the same key draws
+    the same noise, another tile's key other noise. (Rounding moves a
+    sample by one ulp where |tpdf| > 1/2: a quarter of them.)"""
+    chain = get_chain(*E64_88)
+    tile = 32768
+    x = torch.from_numpy(_tiles(16, 1, tile=tile)[0])
+    halo = tfused.init_fused_halo(chain, 2)
+    step = tfused.make_fused_step(
+        chain, _cfg(tile=tile, bit_depth=32, dither=DitherType.FPD), "cpu")
+    plain = tfused.make_fused_step(chain, _cfg(tile=tile, bit_depth=32),
+                                   "cpu")
+    y = _decode(plain(x, halo, 0)[0], 32)
+    k0, k1 = philox.tile_key(42, 0), philox.tile_key(42, 1)
+    w0 = step(x, halo, k0)[0]
+    assert torch.equal(w0, step(x, halo, k0)[0])
+    w1 = step(x, halo, k1)[0]
+    assert not torch.equal(w0, w1)
+    ulp = np.spacing(np.abs(y).astype(np.float32)).astype(np.float64)
+    errs = []
+    for w in (w0, w1):
+        e = (_decode(w, 32) - y) / ulp
+        assert np.all(np.abs(e) <= 1.0)
+        errs.append(e)
+    e = np.concatenate(errs)
+    assert e.size == 2 * 2 * tile // 4
+    assert abs(float(e.mean())) < 0.01
+    assert 0.2 < np.mean(e != 0) < 0.3
+
+
+@pytest.mark.parametrize("key", [E64, E64_176, E256_88], ids=_key_id)
+def test_partial_tile_peak_masked_to_valid_frames(key):
+    """A full-scale burst ends mid-tile, shorter than the filter's
+    delay, and the idle pad follows: the fixed tile's frames past n_valid
+    ring up to full scale, but the peak is max |y[:n_valid]| of the
+    plain cascade. A full tile's peak is unchanged by n_valid."""
+    chain = get_chain(*key)
+    fb = tfused.decimation(chain) // 8
+    tile = 512 * fb * 4
+    n_valid = 512 * 3 - 100
+    x = np.full((2, tile), tfused.IDLE_BYTE, dtype=np.uint8)
+    x[:, (n_valid - 8) * fb:n_valid * fb] = 0xFF
+    x = torch.from_numpy(x)
+    halo = tfused.init_fused_halo(chain, 2)
+    step = tfused.make_fused_step(
+        chain, _cfg(tile=tile, level=0.0, dither=DitherType.TPDF), "cpu")
+    y = tfused.fused_decim_cascade(x, halo, _taps(chain), chain, 1.0)
+    _w, masked, _h = step(x, halo, 1, n_valid)
+    _w, whole, _h = step(x, halo, 1)
+    assert float(masked) == float(y[:, :n_valid].abs().max())
+    assert float(whole) == float(y.abs().max()) > float(masked) + 0.5
+    full = torch.from_numpy(_tiles(17, 1, tile=tile)[0])
+    assert float(step(full, halo, 1, tile // fb)[1]) == float(
+        step(full, halo, 1)[1])
+    assert float(step(x, halo, 1, 0)[1]) == 0.0
+
+
+@pytest.mark.parametrize("bits,dither", [
+    (16, DitherType.NONE), (16, DitherType.TPDF), (16, DitherType.RECTANGULAR),
+    (20, DitherType.NONE), (20, DitherType.TPDF), (24, DitherType.RECTANGULAR),
+    (32, DitherType.NONE), (32, DitherType.FPD)])
+def test_step_covers_every_epilogue(bits, dither):
+    """Each epilogue builds on a ÷128 chain and emits T_out frames of its
+    width; 20-bit samples keep their low 4 bits zero; big endian is the
+    byte reverse of little endian."""
+    chain = get_chain(*E256_88)
+    tile = 4096
+    cfg = _cfg(tile=tile, bit_depth=bits, dither=dither)
+    x = torch.from_numpy(_tiles(18, 1, tile=tile)[0])
+    halo = tfused.init_fused_halo(chain, 2)
+    wire, peak, _ = tfused.make_fused_step(chain, cfg, "cpu")(x, halo, 9)
+    bps = {16: 2, 20: 3, 24: 3, 32: 4}[bits]
+    assert wire.numel() == tile // 16 * 2 * bps
+    be = tfused.make_fused_step(chain, cfg, "cpu", big_endian=True)
+    assert torch.equal(be(x, halo, 9)[0].reshape(-1, bps),
+                       wire.reshape(-1, bps).flip(1))
+    if bits == 20:
+        assert np.all(wire.numpy().reshape(-1, 3)[:, 0] & 0x0F == 0)
+    assert 0.0 < float(peak) < 1.0
+
+
+@pytest.mark.parametrize("key,bits,modes", [
+    (E64, 24, ("K1a",)), (E64, 16, ("K1d",)), (E64_176, 24, ("K1b",)),
+    (E64_88, 32, ("K1b", "K1d")), (E128_88, 20, ("K1c", "K1d")),
+    (E256_88, 24, ("K1c",))])
+def test_kernel_modes(key, bits, modes):
+    assert tfused.kernel_modes(get_chain(*key), bits) == modes

@@ -89,7 +89,15 @@ def test_state_from_jax():
     assert int(st[1, 5]) == 3
     halo[1, 5] = 7  # the port owns its copy
     assert int(st[1, 5]) == 3
+    # G=2/4 word lanes: the little-endian bytes of each word, in order
+    words = np.array([[0x0201, 0x0403], [0x1211, 0x1413]], dtype=np.uint16)
+    assert tplan.state_from_jax(words).tolist() == [[1, 2, 3, 4],
+                                                    [0x11, 0x12, 0x13, 0x14]]
+    words32 = np.array([[0x04030201]], dtype=">u4")  # any byte order in
+    assert tplan.state_from_jax(words32).tolist() == [[1, 2, 3, 4]]
     with pytest.raises(ValueError):
-        tplan.state_from_jax(np.zeros((2, 128), dtype=np.uint16))
+        tplan.state_from_jax(np.zeros((2, 128), dtype=np.int16))
+    with pytest.raises(ValueError):
+        tplan.state_from_jax(np.zeros((2, 128), dtype=np.uint64))
     with pytest.raises(ValueError):
         tplan.state_from_jax(np.zeros(128, dtype=np.uint8))
