@@ -7,11 +7,12 @@ Run from the root of a checkout. Phases, one line each (kernel-vs-plain
 one line per chain); any failed check exits non-zero:
 
 1. env: Python, torch and CUDA versions, nvcc, the card (nvidia-smi).
-2. build: compiles the fused decimation kernel (K1a-K1d) from csrc/ with
-   nvcc.
-3. kernel vs plain, two channels, three streamed tiles of the size the
-   engine gives each input rate (4 MiB/ch at DSD64 ... 32 MiB/ch at
-   DSD512), level -1.5 dB, the plain PyTorch version on the same inputs:
+2. build: compiles csrc/fused_decim.cu (K1a-K1e) and csrc/finish.cu (K2)
+   with one nvcc each, started together, and links them; prints every
+   instantiation's registers and spills.
+3. kernel vs plain (K1a-K1d), two channels, three streamed tiles of the
+   size the engine gives each input rate (4 MiB/ch at DSD64 ... 32 MiB/ch
+   at DSD512), level -1.5 dB, the plain PyTorch version on the same inputs:
    - K1a's chains (E, X, D at DSD64 -> 352.8k, E at DSD128 -> 705.6k) at
      24-bit NONE and TPDF;
    - one or more chains per deeper class: ÷16 (E DSD64 -> 176.4k), ÷32
@@ -28,26 +29,48 @@ one line per chain); any failed check exits non-zero:
    Then a partial final tile: a burst that ends at n_valid, the idle pad
    after it; the kernel's peak is the plain cascade's max over the first
    n_valid frames.
-4. e2e, BASELINE config 1: a three-minute DSD64 stereo 1 kHz tone .dsf
+4. the 48k family, all 9 chains (E DSD64/128/256 -> 96k/192k/384k), two
+   channels, three streamed tiles at the engine's tile:
+   - K1e vs plain: the planar f32 head against fused_decim_cascade at
+     gain 1, bit-equal;
+   - tail precision: rational_tail (fp32 torch.matmul) on the heads' real
+     output against a float64 numpy oracle of the same band, below 2e-6;
+   - K2 vs plain on the tail's output, DSD64 -> 192k and DSD256 -> 96k at
+     16/20/24-bit NONE/TPDF/RECT and f32 NONE/FPD, with the limits of 3;
+   - the whole step (K1e, tail, K2 through make_rational_step) against its
+     plain path: all 9 at 24-bit TPDF, 3 at f32 FPD, the same limits;
+   - a partial final tile on DSD64 -> 192k: the peak is the plain
+     valid-prefix peak.
+5. e2e, BASELINE config 1: a three-minute DSD64 stereo 1 kHz tone .dsf
    through the port's CLI to a 24-bit 352.8 kHz TPDF WAV; checks the WAV
    header, the frame count, the 1 kHz spectral peak and that the kernel
    (K1a) ran once per tile.
-5. e2e, BASELINE config 2: the same three minutes as raw interleaved
+6. e2e, integer 48k: the same .dsf to a 24-bit 96 kHz TPDF WAV (÷32 head,
+   3008-tap tail); the same checks, one K1e and one K2 launch per tile.
+7. e2e, BASELINE config 2: the same three minutes as raw interleaved
    DSD64 (127 MB) on the CLI's stdin with `-f I -r 176400`, raw s24le on
    stdout; checks 180 x 176400 frames, the 1 kHz peak on both channels
    and one ÷16 launch (K1b) per tile.
-6. e2e, deep chain: a three-minute DSD128 stereo .dsf (254 MB) to a
+8. e2e, deep chain: a three-minute DSD128 stereo .dsf (254 MB) to a
    20-bit 88.2 kHz TPDF WAV (÷64, config 3's chain and depth); checks the
    header, the frame count, the zero low 4 bits of every sample, the
    1 kHz peak and one K1c+K1d launch per tile.
-7. timing: kernel and plain version per 16 MiB/ch stereo tile, CUDA
-   events over 8 staged tiles, plain-kernel-kernel-plain, for K1a (÷8),
-   ÷16, ÷64 and ÷128 at 24-bit TPDF and ÷64 at 20-bit TPDF (K1d).
+9. e2e, BASELINE config 4: a one-minute DSD256 stereo .dsf (169 MB)
+   through the CLI with `-b 32 -o C -r 192000` (FPD by default); checks
+   the AIFC `fl32` header, 60 x 192000 frames, the 1 kHz peak on both
+   channels and one K1e and one K2 launch per tile.
+10. timing: kernel and plain version per 16 MiB/ch stereo tile, CUDA
+    events over 8 staged tiles, plain-kernel-kernel-plain, for K1a (÷8),
+    ÷16, ÷64 and ÷128 at 24-bit TPDF and ÷64 at 20-bit TPDF (K1d); for
+    the 48k family, one 16.08 MiB/ch tile (the engine's unit-aligned
+    tile) of DSD64 -> 192k and of DSD256 -> 96k: K1e against the plain
+    head, the tail alone, K2 against the plain finish (24-bit TPDF and
+    f32 FPD), and the whole step against its plain path.
 
-Then the card's name and power limit, one JSON line on the kernels
-(launches from the e2e phase that drives each mode; max_abs_err in LSB
-of the output depth, absolute for f32), and the last line
-{"ok": true, "device": {...}}.
+Each phase line ends with the seconds since the start. Then the card's
+name and power limit, one JSON line on the kernels (launches from the e2e
+phase that drives each mode; max_abs_err in LSB of the output depth,
+absolute for f32), and the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -66,6 +89,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DSD64_HZ = 2_822_400
 SECONDS = 180
+SECONDS_CONFIG4 = 60  # DSD256: 169 MB of .dsf for a minute
+T_START = time.perf_counter()
 TOL_NONE_LSB = 5
 TOL_DITHER_LSB = 1
 
@@ -81,7 +106,8 @@ def check(cond: bool, msg: str) -> None:
 
 
 def phase(name: str, text: str) -> None:
-    print(f"[{name}] {text}", flush=True)
+    print(f"[{name}] {text} (+{time.perf_counter() - T_START:.1f} s)",
+          flush=True)
 
 
 # -- test signal: DSD tone files, written without the JAX package ------------
@@ -138,6 +164,30 @@ def fft_peak_hz(pcm, rate: int):
     return np.fft.rfftfreq(pcm.shape[0], 1 / rate)[spec.argmax(axis=0)]
 
 
+def read_aifc_f32(path: Path):
+    """(channels, frames, sample size, compression type, (frames, C) f32
+    samples) of an AIFC file of big-endian 32-bit floats."""
+    import numpy as np
+
+    data = path.read_bytes()
+    check(data[:4] == b"FORM" and data[8:12] == b"AIFC",
+          f"{path.name}: not an AIFC file")
+    comm, ssnd, i = None, None, 12
+    while i + 8 <= len(data):
+        cid, size = data[i:i + 4], struct.unpack(">I", data[i + 4:i + 8])[0]
+        if cid == b"COMM":
+            comm = data[i + 8:i + 8 + size]
+        elif cid == b"SSND":
+            off = struct.unpack(">I", data[i + 8:i + 12])[0]
+            ssnd = data[i + 16 + off:i + 8 + size]
+        i += 8 + size + (size & 1)
+    check(comm is not None and ssnd is not None,
+          f"{path.name}: no COMM or SSND chunk")
+    ch, frames, bits = struct.unpack(">hIh", comm[:8])
+    pcm = np.frombuffer(ssnd, dtype=">f4").reshape(-1, ch)
+    return ch, frames, bits, comm[18:22], pcm
+
+
 def s24(raw, shift: int = 0):
     """Little-endian 24-bit samples -> int64, arithmetic-shifted right."""
     import numpy as np
@@ -160,7 +210,7 @@ def main() -> int:
 
     from dsd2dxd_tpu_torch import DitherType, DsdRate, FilterType, kernels
     from dsd2dxd_tpu_torch.cli.dsd2dxd import run as cli_run
-    from dsd2dxd_tpu_torch.ops import fused, philox
+    from dsd2dxd_tpu_torch.ops import fused, philox, rational
     from dsd2dxd_tpu_torch.ops.plan import get_chain
     from dsd2dxd_tpu_torch.ops.resample import StepConfig
     from dsd2dxd_tpu_torch.pipeline import engine
@@ -187,7 +237,8 @@ def main() -> int:
     ptxas = sorted({ln.strip() for ln in kernels.BUILD_LOG.splitlines()
                     if "registers" in ln or "spill" in ln})
     phase("build", f"{build_s:.1f} s for {', '.join(kernels.SOURCES)} "
-          f"(sm_90a, 11 epilogue instantiations); ptxas: "
+          f"(one nvcc each, in parallel; sm_90a; fused_decim: 11 epilogue "
+          f"instantiations + the K1e planar head, finish: 11); ptxas: "
           f"{' | '.join(ptxas) or 'cached'}")
 
     def decode(wire, bits):
@@ -227,7 +278,73 @@ def main() -> int:
         ("E DSD512->352.8k", (E, DsdRate.DSD512, 352800), all_epilogues),
         ("E DSD256->88.2k", (E, DsdRate.DSD256, 88200), all_epilogues),
     ]
-    max_err = {"K1a": 0.0, "K1b": 0.0, "K1c": 0.0, "K1d": 0.0}
+    def new_stats():
+        return dict(diff=0.0, same=0, n=0, dpk=0.0, errs=[], noise=[])
+
+    def tile_stats(s, name, wk, pk, wr, pr, yf, bits, dither):
+        """Fold one tile's kernel (wk, pk) against plain (wr, pr) wire
+        bytes and peak into s; yf: the undithered gain-scaled samples,
+        frame-interleaved."""
+        qk, qr = decode(wk, bits), decode(wr, bits)
+        s["diff"] = max(s["diff"], float((qk.double() - qr.double())
+                                         .abs().max()))
+        s["same"] += int((qk == qr).sum())
+        s["n"] += qk.numel()
+        s["dpk"] = max(s["dpk"], abs(float(pk) - float(pr)))
+        if dither is N:
+            return
+        if bits == 32:
+            ulp = ((yf.view(torch.int32) & 0x7F800000)
+                   .view(torch.float32).double() * 2.0 ** -23)
+            live = ulp > 0
+            e = (qk.double() - yf.double())[live] / ulp[live]
+            check(bool((qk.double() - yf.double())[~live].eq(0).all()),
+                  f"{name} FPD: dither on a zero or denormal sample")
+            check(float(e.abs().max()) <= 1.0,
+                  f"{name} FPD: a sample moved more than 1 ulp")
+        else:
+            f = yf.double() * float(1 << (bits - 1))
+            e = qk.double() - f
+            e = e[f.abs() < (1 << (bits - 1)) - 4]
+        s["errs"].append(e)
+        s["noise"].append(e[: 1 << 16].cpu())
+
+    def verdict(name, bits, dither, s) -> str:
+        """Check the limits on one epilogue's stats; its summary."""
+        tag = f"{bits}{'f' if bits == 32 else ''}{dither.name[0]}"
+        frac = s["same"] / s["n"]
+        if bits == 32:
+            check(dither is F or s["diff"] == 0.0,
+                  f"{name} {tag}: f32 NONE not bit-equal ({s['diff']})")
+            check(s["diff"] <= 2 ** -22,
+                  f"{name} {tag}: kernel vs plain {s['diff']}")
+        elif dither is N:
+            check(s["diff"] <= TOL_NONE_LSB,
+                  f"{name} {tag}: kernel vs plain {s['diff']} LSB")
+        else:
+            check(s["diff"] <= TOL_DITHER_LSB,
+                  f"{name} {tag}: kernel vs plain {s['diff']} LSB")
+        check(dither is N or frac >= 0.999,
+              f"{name} {tag}: only {frac:.5f} identical")
+        check(s["dpk"] <= 1e-4, f"{name} {tag}: peak differs by {s['dpk']}")
+        text = f"{tag} d{s['diff']:g} {frac * 100:.3f}%"
+        if dither is not N:
+            e = torch.cat(s["errs"])
+            rms = float(e.pow(2).mean().sqrt())
+            mean = float(e.mean())
+            lo, hi = ((0.38, 0.44) if dither is R
+                      else (0.0, 1.0) if dither is F else (0.45, 0.55))
+            if dither is not F:
+                check(lo < rms < hi, f"{name} {tag}: error RMS {rms}")
+            check(abs(mean) < 0.01, f"{name} {tag}: error mean {mean}")
+            nz = s["noise"]
+            check(not torch.equal(nz[0], nz[1])
+                  and not torch.equal(nz[1], nz[2]),
+                  f"{name} {tag}: tiles share noise")
+            text += f" rms {rms:.4f} mean {mean:+.5f}"
+        return text
+
+    max_err = {m: 0.0 for m in fused.MODE_LAUNCHES}
     rng = np.random.default_rng(2026)
     for name, key, epilogues in cells:
         chain = get_chain(*key)
@@ -244,15 +361,13 @@ def main() -> int:
         gain = fused._gain32(StepConfig(channels=2, tile_bytes=tile,
                                         bit_depth=24, dither=N,
                                         level_db=-1.5))
-        st = {ep: dict(diff=0.0, same=0, n=0, dpk=0.0, errs=[], noise=[])
-              for ep in epilogues}
+        st = {ep: new_stats() for ep in epilogues}
         h = fused.init_fused_halo(chain, 2, dev)
         for t, x in enumerate(xs):
             k64 = philox.tile_key(7, t)
             y = fused.fused_decim_cascade(x, h, taps, chain, gain)
             yf = y.T.reshape(-1)
             for (bits, dither), step in steps.items():
-                s = st[(bits, dither)]
                 cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=bits,
                                  dither=dither, level_db=-1.5)
                 wk, pk, hk = step(x, h, k64)
@@ -260,67 +375,14 @@ def main() -> int:
                 torch.cuda.synchronize()
                 check(torch.equal(hk, x[:, tile - h.shape[1]:]),
                       f"{name}: new halo differs")
-                qk, qr = decode(wk, bits), decode(wr, bits)
-                s["diff"] = max(s["diff"], float((qk.double() - qr.double())
-                                                 .abs().max()))
-                s["same"] += int((qk == qr).sum())
-                s["n"] += qk.numel()
-                s["dpk"] = max(s["dpk"], abs(float(pk) - float(pr)))
-                if dither is N:
-                    continue
-                if bits == 32:
-                    ulp = ((yf.view(torch.int32) & 0x7F800000)
-                           .view(torch.float32).double() * 2.0 ** -23)
-                    live = ulp > 0
-                    e = (qk.double() - yf.double())[live] / ulp[live]
-                    check(bool((qk.double() - yf.double())[~live].eq(0).all()),
-                          f"{name} FPD: dither on a zero or denormal sample")
-                    check(float(e.abs().max()) <= 1.0,
-                          f"{name} FPD: a sample moved more than 1 ulp")
-                else:
-                    f = yf.double() * float(1 << (bits - 1))
-                    e = qk.double() - f
-                    e = e[f.abs() < (1 << (bits - 1)) - 4]
-                s["errs"].append(e)
-                s["noise"].append(e[: 1 << 16].cpu())
+                tile_stats(st[(bits, dither)], name, wk, pk, wr, pr, yf,
+                           bits, dither)
             h = x[:, tile - h.shape[1]:].contiguous()
         parts = []
         for (bits, dither), s in st.items():
-            tag = f"{bits}{'f' if bits == 32 else ''}{dither.name[0]}"
-            frac = s["same"] / s["n"]
-            modes = fused.kernel_modes(chain, bits)
-            for m in modes:
+            for m in fused.kernel_modes(chain, bits):
                 max_err[m] = max(max_err[m], s["diff"])
-            if bits == 32:
-                check(dither is F or s["diff"] == 0.0,
-                      f"{name} {tag}: f32 NONE not bit-equal ({s['diff']})")
-                check(s["diff"] <= 2 ** -22,
-                      f"{name} {tag}: kernel vs plain {s['diff']}")
-            elif dither is N:
-                check(s["diff"] <= TOL_NONE_LSB,
-                      f"{name} {tag}: kernel vs plain {s['diff']} LSB")
-            else:
-                check(s["diff"] <= TOL_DITHER_LSB,
-                      f"{name} {tag}: kernel vs plain {s['diff']} LSB")
-            check(dither is N or frac >= 0.999,
-                  f"{name} {tag}: only {frac:.5f} identical")
-            check(s["dpk"] <= 1e-4, f"{name} {tag}: peak differs by {s['dpk']}")
-            text = f"{tag} d{s['diff']:g} {frac * 100:.3f}%"
-            if dither is not N:
-                e = torch.cat(s["errs"])
-                rms = float(e.pow(2).mean().sqrt())
-                mean = float(e.mean())
-                lo, hi = ((0.38, 0.44) if dither is R
-                          else (0.0, 1.0) if dither is F else (0.45, 0.55))
-                if dither is not F:
-                    check(lo < rms < hi, f"{name} {tag}: error RMS {rms}")
-                check(abs(mean) < 0.01, f"{name} {tag}: error mean {mean}")
-                nz = s["noise"]
-                check(not torch.equal(nz[0], nz[1])
-                      and not torch.equal(nz[1], nz[2]),
-                      f"{name} {tag}: tiles share noise")
-                text += f" rms {rms:.4f} mean {mean:+.5f}"
-            parts.append(text)
+            parts.append(verdict(name, bits, dither, s))
         phase("kernel-vs-plain",
               f"{name} (÷{r}, {tile} B/ch tiles, block_out "
               f"{fused.block_out_for(chain)}): " + "; ".join(parts))
@@ -348,13 +410,146 @@ def main() -> int:
           f"{tile // fb} frames): kernel peak {float(pk):.6g} = plain "
           f"valid-prefix peak {masked:.6g}; whole fixed tile {whole:.6g}")
 
+    # 4. the 48k family: K1e, the tail, K2, the whole step ---------------------
+    def tail_oracle(y, hist, band, nhist):
+        """The ×160/147 band over the history and the head samples, in
+        float64 numpy: (C, n * p_out / p_in)."""
+        p = hist.shape[1]
+        yp = np.concatenate([hist[:, p - nhist:], y], axis=1
+                            ).astype(np.float64)
+        win = np.lib.stride_tricks.sliding_window_view(
+            yp, p + nhist, axis=1)[:, ::p]
+        return (win @ band.T.astype(np.float64)).reshape(y.shape[0], -1)
+
+    k2_chains = ("E DSD64->192k", "E DSD256->96k")
+    fpd_chains = ("E DSD64->384k", "E DSD128->192k", "E DSD256->192k")
+    k2_epilogues = [(16, N), (16, T), (16, R), (20, N), (20, T), (20, R),
+                    (24, N), (24, T), (24, R), (32, N), (32, F)]
+    tail_err = 0.0
+    for rate in (DsdRate.DSD64, DsdRate.DSD128, DsdRate.DSD256):
+        for out in (96000, 192000, 384000):
+            name = f"E {rate.name}->{out // 1000}k"
+            chain = get_chain(E, rate, out)
+            rp = rational.rational_plan(chain)
+            head = chain[:rp.n_head]
+            tile = engine_tile(chain, rate)
+            taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32),
+                                 device=dev) for s in head]
+            flat = torch.cat(taps)
+            band_t = torch.from_numpy(rp.band.T.copy()).to(dev)
+            cfg0 = StepConfig(channels=2, tile_bytes=tile, bit_depth=24,
+                              dither=T, level_db=-1.5)
+            gain = fused._gain32(cfg0)
+            step_eps = [(24, T)] + ([(32, F)] if name in fpd_chains else [])
+            fin_eps = k2_epilogues if name in k2_chains else []
+            steps = {ep: rational.make_rational_step(chain, StepConfig(
+                channels=2, tile_bytes=tile, bit_depth=ep[0], dither=ep[1],
+                level_db=-1.5), dev) for ep in step_eps}
+            st_step = {ep: new_stats() for ep in step_eps}
+            st_fin = {ep: new_stats() for ep in fin_eps}
+            states = {ep: rational.init_rational_state(chain, 2, dev)
+                      for ep in step_eps}
+            halo, hist = rational.init_rational_state(chain, 2, dev)
+            head_eq, err = True, 0.0
+            for t in range(3):
+                x = torch.from_numpy(rng.integers(0, 256, (2, tile),
+                                                  dtype=np.uint8)).to(dev)
+                k64 = philox.tile_key(8, t)
+                yk = fused.fused_head_cuda(x, halo, flat, head)
+                yp = fused.fused_decim_cascade(x, halo, taps, head, 1.0)
+                torch.cuda.synchronize()
+                head_eq = head_eq and torch.equal(yk, yp)
+                max_err["K1e"] = max(max_err["K1e"],
+                                     float((yk - yp).abs().max()))
+                z, new_hist = rational.rational_tail(yp, hist, band_t,
+                                                     rp.nhist)
+                if t == 1:
+                    zo = tail_oracle(yk.cpu().numpy(), hist.cpu().numpy(),
+                                     rp.band, rp.nhist)
+                    err = float(np.abs(z.cpu().numpy() - zo).max())
+                zf = (z * gain).T.reshape(-1)
+                for (bits, dither) in fin_eps:
+                    cfg = StepConfig(channels=2, tile_bytes=tile,
+                                     bit_depth=bits, dither=dither,
+                                     level_db=-1.5)
+                    wk, pk = fused.finish_cuda(z, gain, k64, cfg)
+                    wr, pr = fused.finish_reference(z, gain, k64, cfg)
+                    torch.cuda.synchronize()
+                    tile_stats(st_fin[(bits, dither)], f"{name} K2", wk, pk,
+                               wr, pr, zf, bits, dither)
+                for (bits, dither), step in steps.items():
+                    cfg = StepConfig(channels=2, tile_bytes=tile,
+                                     bit_depth=bits, dither=dither,
+                                     level_db=-1.5)
+                    wk, pk, states[(bits, dither)] = step(
+                        x, states[(bits, dither)], k64)
+                    wr, pr = fused.finish_reference(z, gain, k64, cfg)
+                    torch.cuda.synchronize()
+                    check(torch.equal(states[(bits, dither)][0],
+                                      x[:, tile - halo.shape[1]:])
+                          and torch.equal(states[(bits, dither)][1],
+                                          new_hist),
+                          f"{name}: the step's new state differs")
+                    tile_stats(st_step[(bits, dither)], f"{name} step", wk,
+                               pk, wr, pr, zf, bits, dither)
+                halo, hist = x[:, tile - halo.shape[1]:].contiguous(), new_hist
+            check(head_eq, f"{name}: K1e is not bit-equal to the plain head")
+            check(err < 2e-6, f"{name}: tail {err} from the f64 oracle")
+            tail_err = max(tail_err, err)
+            n_base = tile * 8 // rp.r_head
+            phase("K1e-vs-plain", f"{name} (÷{rp.r_head} head, {tile} B/ch "
+                  f"tiles, {n_base} head frames/ch): bit-equal on 3 tiles; "
+                  f"tail vs f64 oracle {err:.3g} (band {rp.band.shape}, "
+                  f"nhist {rp.nhist})")
+            if fin_eps:
+                parts = [verdict(f"{name} K2", b, d, st_fin[(b, d)])
+                         for b, d in fin_eps]
+                max_err["K2"] = max([max_err["K2"]] + [
+                    st_fin[ep]["diff"] for ep in fin_eps])
+                phase("K2-vs-plain", f"{name} ({n_base * 160 // 147} final "
+                      f"frames/ch): " + "; ".join(parts))
+            parts = [verdict(f"{name} step", b, d, st_step[(b, d)])
+                     for b, d in step_eps]
+            phase("step-vs-plain", f"{name} (K1e + tail + K2 against the "
+                  f"plain head, tail and finish): " + "; ".join(parts))
+
+    # partial final tile on a 48k chain: the peak of the valid prefix
+    chain = get_chain(E, DsdRate.DSD64, 192000)
+    rp = rational.rational_plan(chain)
+    tile = engine_tile(chain, DsdRate.DSD64)
+    n_out = tile * 8 // rp.r_head * 160 // 147
+    n_valid = n_out - 1000
+    end = n_valid * 147 // 160 * rp.r_head // 8
+    x = torch.full((2, tile), fused.IDLE_BYTE, dtype=torch.uint8, device=dev)
+    x[:, end - 16:end] = 0xFF
+    cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=24, dither=T,
+                     level_db=0.0)
+    state = rational.init_rational_state(chain, 2, dev)
+    _w, pk, _s = rational.make_rational_step(chain, cfg, dev)(
+        x, state, 5, n_valid)
+    head = chain[:rp.n_head]
+    taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32), device=dev)
+            for s in head]
+    z, _h = rational.rational_tail(
+        fused.fused_decim_cascade(x, state[0], taps, head, 1.0), state[1],
+        torch.from_numpy(rp.band.T.copy()).to(dev), rp.nhist)
+    torch.cuda.synchronize()
+    masked, whole = float(z[:, :n_valid].abs().max()), float(z.abs().max())
+    check(abs(float(pk) - masked) <= 1e-6,
+          f"48k partial tile: kernel peak {float(pk)} vs valid-prefix "
+          f"{masked}")
+    check(whole > float(pk) + 0.1, "48k partial tile: the pad did not ring")
+    phase("K2-vs-plain", f"partial final tile (DSD64->192k, n_valid "
+          f"{n_valid} of {n_out} frames): step peak {float(pk):.6g} = plain "
+          f"valid-prefix peak {masked:.6g}; whole fixed tile {whole:.6g}")
+
     tmp = Path(tempfile.mkdtemp(prefix="dsd2dxd_smoke_"))
     launches = {}
     try:
         planes64 = tone_planes(DSD64_HZ, SECONDS)
         n64 = planes64.shape[1]
 
-        # 4. e2e, config 1 -----------------------------------------------------
+        # 5. e2e, config 1 -----------------------------------------------------
         chain = get_chain(E, DsdRate.DSD64, 352800)
         src = tmp / "tone_dsd64_180s.dsf"
         write_dsf(src, planes64, DSD64_HZ)
@@ -387,10 +582,41 @@ def main() -> int:
               f"{SECONDS / wall:.1f} audio-s/s; {n_tiles} tiles of "
               f"{tile_bytes} B/ch, {launches['K1a']} K1a launches; FFT peak "
               f"{peak_hz.tolist()} Hz; card [{label}]")
+        wav_path.unlink()
+
+        # 6. e2e, integer 48k: the same .dsf -> 24-bit 96 kHz TPDF WAV -----
+        chain = get_chain(E, DsdRate.DSD64, 96000)
+        tile_bytes = engine_tile(chain, DsdRate.DSD64)
+        n_tiles = -(-n64 // tile_bytes)
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_run(["-o", "w", "-r", "96000", "-q", "-p", str(out_dir),
+                      str(src)])
+        wall = time.perf_counter() - t0
+        k1e, k2 = fused.MODE_LAUNCHES["K1e"], fused.MODE_LAUNCHES["K2"]
+        check(rc == 0, f"CLI exited {rc}")
+        check(k1e == k2 == fused.KERNEL_LAUNCHES == n_tiles,
+              f"K1e/K2 launched {k1e}/{k2} times for {n_tiles} tiles")
+        wav_path = out_dir / "tone_dsd64_180s.wav"
+        with wave.open(str(wav_path)) as w:
+            params = (w.getnchannels(), w.getsampwidth(), w.getframerate(),
+                      w.getnframes())
+            check(params == (2, 3, 96000, SECONDS * 96000),
+                  f"WAV params {params}")
+            w.setpos(SECONDS // 2 * 96000)
+            pcm = s24(w.readframes(96000)).reshape(-1, 2)
+        check(np.abs(pcm).max() > 1 << 20, "output is silent")
+        peak_hz = fft_peak_hz(pcm, 96000)
+        check(np.all(np.abs(peak_hz - 1000.0) < 2.0), f"FFT peak at {peak_hz} Hz")
+        phase("e2e", f"integer 48k: CLI {SECONDS} s DSD64 stereo .dsf -> "
+              f"24-bit 96k TPDF WAV ({wav_path.stat().st_size / 1e6:.1f} MB) "
+              f"in {wall:.2f} s = {SECONDS / wall:.1f} audio-s/s; {n_tiles} "
+              f"tiles of {tile_bytes} B/ch, {k1e} K1e + {k2} K2 launches; "
+              f"FFT peak {peak_hz.tolist()} Hz; card [{label}]")
         src.unlink()
         wav_path.unlink()
 
-        # 5. e2e, config 2: raw interleaved DSD64 on stdin -> s24le on stdout
+        # 7. e2e, config 2: raw interleaved DSD64 on stdin -> s24le on stdout
         chain = get_chain(E, DsdRate.DSD64, 176400)
         raw_in = tmp / "tone_dsd64_180s.dsd"
         raw_in.write_bytes(planes64.T.tobytes())
@@ -432,7 +658,7 @@ def main() -> int:
         raw_out.unlink()
         del planes64
 
-        # 6. e2e, deep chain: DSD128 .dsf -> 20-bit 88.2k TPDF WAV (÷64)
+        # 8. e2e, deep chain: DSD128 .dsf -> 20-bit 88.2k TPDF WAV (÷64)
         hz128 = 2 * DSD64_HZ
         chain = get_chain(E, DsdRate.DSD128, 88200)
         planes128 = tone_planes(hz128, SECONDS)
@@ -473,10 +699,52 @@ def main() -> int:
               f"{wall:.2f} s = {SECONDS / wall:.1f} audio-s/s; {n_tiles} "
               f"tiles of {tile_bytes} B/ch, {launches['K1c']} K1c+K1d "
               f"launches; FFT peak {peak_hz.tolist()} Hz; card [{label}]")
+        src.unlink()
+        wav_path.unlink()
+
+        # 9. e2e, config 4: DSD256 .dsf -> 32-bit float AIFC at 192 kHz ----
+        hz256 = 4 * DSD64_HZ
+        sec = SECONDS_CONFIG4
+        chain = get_chain(E, DsdRate.DSD256, 192000)
+        planes256 = tone_planes(hz256, sec)
+        n256 = planes256.shape[1]
+        src = tmp / "tone_dsd256_60s.dsf"
+        write_dsf(src, planes256, hz256)
+        del planes256
+        tile_bytes = engine_tile(chain, DsdRate.DSD256)
+        n_tiles = -(-n256 // tile_bytes)
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_run(["-b", "32", "-o", "C", "-r", "192000", "-q", "-p",
+                      str(out_dir), str(src)])
+        wall = time.perf_counter() - t0
+        launches["K1e"] = fused.MODE_LAUNCHES["K1e"]
+        launches["K2"] = fused.MODE_LAUNCHES["K2"]
+        check(rc == 0, f"CLI exited {rc}")
+        check(launches["K1e"] == launches["K2"] == fused.KERNEL_LAUNCHES
+              == n_tiles, f"K1e/K2 launched {launches['K1e']}/"
+              f"{launches['K2']} times for {n_tiles} tiles")
+        aifc_path = out_dir / "tone_dsd256_60s.aifc"
+        ch, frames, bits, ctype, pcm = read_aifc_f32(aifc_path)
+        check((ch, frames, bits, ctype) == (2, sec * 192000, 32, b"fl32"),
+              f"AIFC COMM {(ch, frames, bits, ctype)}")
+        check(pcm.shape == (sec * 192000, 2), f"AIFC payload {pcm.shape}")
+        mid = pcm[sec // 2 * 192000:(sec // 2 + 1) * 192000]
+        check(bool(np.isfinite(pcm).all()), "non-finite float samples")
+        check(np.abs(mid).max() > 0.25, "output is silent")
+        peak_hz = fft_peak_hz(mid, 192000)
+        check(np.all(np.abs(peak_hz - 1000.0) < 2.0), f"FFT peak at {peak_hz} Hz")
+        phase("e2e", f"config 4: CLI `-b 32 -o C -r 192000`, {sec} s DSD256 "
+              f"stereo .dsf ({src.stat().st_size / 1e6:.1f} MB) -> f32 FPD "
+              f"AIFC ({aifc_path.stat().st_size / 1e6:.1f} MB, fl32, "
+              f"{frames} frames) in {wall:.2f} s = {sec / wall:.1f} "
+              f"audio-s/s; {n_tiles} tiles of {tile_bytes} B/ch, "
+              f"{launches['K1e']} K1e + {launches['K2']} K2 launches; FFT "
+              f"peak {peak_hz.tolist()} Hz; card [{label}]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 7. timing at bench.py's tile --------------------------------------------
+    # 10. timing at bench.py's tile -------------------------------------------
     tile = 16 * 1024 * 1024
     xs = [torch.from_numpy(rng.integers(0, 256, (2, tile), dtype=np.uint8)
                            ).to(dev) for _ in range(8)]
@@ -525,23 +793,118 @@ def main() -> int:
               f"({audio / p_ms * 1e3:.0f} audio-s/s, runs {runs['plain']}); "
               f"card [{label}]")
 
+    del xs
+
+    # the 48k family: K1e, the tail and K2 alone, and the whole step
+    def ev_ms(fn, n) -> float:
+        """Mean ms of fn(i), i < n, between two CUDA events (warmed)."""
+        fn(0)
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for i in range(n):
+            fn(i)
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) / n
+
+    def alternate(plain_fn, kernel_fn, n):
+        """(kernel ms, plain ms, runs): plain, kernel, kernel, plain."""
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            runs[which].append(ev_ms(plain_fn if which == "plain"
+                                     else kernel_fn, n))
+        return (sum(runs["kernel"]) / 2, sum(runs["plain"]) / 2, runs)
+
+    for name, key in (("DSD64->192k", (E, DsdRate.DSD64, 192000)),
+                      ("DSD256->96k", (E, DsdRate.DSD256, 96000))):
+        chain = get_chain(*key)
+        rp = rational.rational_plan(chain)
+        head = chain[:rp.n_head]
+        tile = engine._tile_bytes_for(chain, 16 * 1024 * 1024)
+        n = 8
+        xs = [torch.from_numpy(rng.integers(0, 256, (2, tile),
+                                            dtype=np.uint8)).to(dev)
+              for _ in range(n)]
+        taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32),
+                             device=dev) for s in head]
+        flat = torch.cat(taps)
+        band_t = torch.from_numpy(rp.band.T.copy()).to(dev)
+        halo, hist = rational.init_rational_state(chain, 2, dev)
+        ys = [fused.fused_head_cuda(x, halo, flat, head) for x in xs]
+        zs = [rational.rational_tail(y, hist, band_t, rp.nhist)[0]
+              for y in ys]
+        keys = [philox.tile_key(12, i) for i in range(n)]
+        head_k, head_p, head_runs = alternate(
+            lambda i: fused.fused_decim_cascade(xs[i], halo, taps, head, 1.0),
+            lambda i: fused.fused_head_cuda(xs[i], halo, flat, head), n)
+        tail_ms = (ev_ms(lambda i: rational.rational_tail(
+            ys[i], hist, band_t, rp.nhist), n) + ev_ms(
+            lambda i: rational.rational_tail(ys[i], hist, band_t, rp.nhist),
+            n)) / 2
+        fin = {}
+        for bits, dither in ((24, T), (32, F)):
+            cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=bits,
+                             dither=dither, level_db=0.0)
+            fin[bits] = alternate(
+                lambda i, c=cfg: fused.finish_reference(zs[i], 1.0, keys[i], c),
+                lambda i, c=cfg: fused.finish_cuda(zs[i], 1.0, keys[i], c), n)
+        cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=24,
+                         dither=T, level_db=0.0)
+        step = rational.make_rational_step(chain, cfg, dev)
+
+        def plain_step(i, _cfg=cfg):
+            y = fused.fused_decim_cascade(xs[i], halo, taps, head, 1.0)
+            z, _h = rational.rational_tail(y, hist, band_t, rp.nhist)
+            return fused.finish_reference(z, 1.0, keys[i], _cfg)
+
+        step_k, step_p, step_runs = alternate(
+            plain_step, lambda i: step(xs[i], (halo, hist), keys[i]), n)
+        if key[1] is DsdRate.DSD64:
+            timed["K1e"] = (head_k, head_p)
+            timed["K2"] = fin[24][:2]
+        audio = tile * 8 / key[1].hz
+        n_out = tile * 8 // rp.r_head * 160 // 147
+        phase("timing", f"48k {name}, {tile} B/ch stereo tile ({audio:.2f} s "
+              f"audio, ÷{rp.r_head} head, {n_out} final frames/ch): K1e "
+              f"{head_k:.3f} ms (runs {head_runs['kernel']}) vs plain head "
+              f"{head_p:.3f} ms (runs {head_runs['plain']}); tail "
+              f"(torch.matmul) {tail_ms:.3f} ms; K2 24-bit TPDF "
+              f"{fin[24][0]:.3f} ms vs plain finish {fin[24][1]:.3f} ms; K2 "
+              f"f32 FPD {fin[32][0]:.3f} ms vs plain {fin[32][1]:.3f} ms; "
+              f"whole step 24-bit TPDF {step_k:.3f} ms "
+              f"({audio / step_k * 1e3:.0f} audio-s/s, runs "
+              f"{step_runs['kernel']}) vs plain path {step_p:.3f} ms; "
+              f"card [{label}]")
+        del xs, ys, zs
+
     check("jax" not in sys.modules, "jax was loaded")
-    check(all(launches[m] > 0 for m in ("K1a", "K1b", "K1c", "K1d")),
+    check(all(launches[m] > 0 for m in ("K1a", "K1b", "K1c", "K1d", "K1e",
+                                        "K2")),
           f"a kernel mode was not launched on its path: {launches}")
-    source = "dsd2dxd_tpu_torch/csrc/fused_decim.cu"
-    rows = [("K1a", "fused_decim (K1a: G=1 ÷8, 24-bit)",
+    k1 = "dsd2dxd_tpu_torch/csrc/fused_decim.cu"
+    rows = [("K1a", "fused_decim (K1a: G=1 ÷8, 24-bit)", k1,
              "dsd2dxd_tpu/ops/fused.py:287 (_build_kernel, G=1, 24-bit)"),
-            ("K1b", "fused_decim (K1b: ÷16/÷32 word lanes)",
+            ("K1b", "fused_decim (K1b: ÷16/÷32 word lanes)", k1,
              "dsd2dxd_tpu/ops/fused.py:287 (_build_kernel, G=2/4 word lanes)"),
-            ("K1c", "fused_decim (K1c: ÷64/÷128 à-trous tail)",
+            ("K1c", "fused_decim (K1c: ÷64/÷128 à-trous tail)", k1,
              "dsd2dxd_tpu/ops/fused.py:287 (_build_kernel, à-trous tail)"),
-            ("K1d", "fused_decim (K1d: 16/20-bit, f32/FPD epilogues)",
-             "dsd2dxd_tpu/ops/fused.py:287 (_build_kernel, epilogues)")]
+            ("K1d", "fused_decim (K1d: 16/20-bit, f32/FPD epilogues)", k1,
+             "dsd2dxd_tpu/ops/fused.py:287 (_build_kernel, epilogues)"),
+            ("K1e", "fused_decim (K1e: planar f32 head of the 48k chains)",
+             k1, "dsd2dxd_tpu/ops/fused.py:1219 (make_fused_rational_step "
+             "head: _build_kernel at bit_depth 32, no dither, level 0)"),
+            ("K2", "finish (K2: gain, peak, dither, quantize, wire bytes)",
+             "dsd2dxd_tpu_torch/csrc/finish.cu",
+             "dsd2dxd_tpu/ops/fused.py:1019 (make_finish_planes, "
+             "pallas_call :1120)")]
     print(label)
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": source, "replaces": rep,
+        "name": name, "route": "cuda", "source": src_file, "replaces": rep,
         "launches": launches[m], "max_abs_err": max_err[m],
-        "ms": timed[m][0], "plain_ms": timed[m][1]} for m, name, rep in rows]}))
+        "ms": timed[m][0], "plain_ms": timed[m][1]}
+        for m, name, src_file, rep in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

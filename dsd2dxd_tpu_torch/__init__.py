@@ -2,9 +2,11 @@
 
 The JAX package ``dsd2dxd_tpu`` stays the reference. This package runs its
 44.1k family (every pure ÷2^k chain, DSD64 -> 352.8 kHz down to DSD256 ->
-88.2 kHz, at 16/20/24 bit and 32-bit float) on an NVIDIA card: host code in
-PyTorch, the fused decimation kernel written by hand in CUDA
-(``csrc/fused_decim.cu``). It reuses the JAX package's host modules
+88.2 kHz) and its 48k family (a ÷2^k head and the ×160/147 stage, DSD64/128/
+256 -> 96/192/384 kHz), at 16/20/24 bit and 32-bit float, on an NVIDIA card:
+host code in PyTorch, the fused decimation kernel and the finish kernel
+written by hand in CUDA (``csrc/fused_decim.cu``, ``csrc/finish.cu``). It
+reuses the JAX package's host modules
 (formats, containers, filters, native, CLI parser) by import; none of them
 loads jax, and neither does this package.
 """

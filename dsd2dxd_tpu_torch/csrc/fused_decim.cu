@@ -1,5 +1,6 @@
-// K1a-K1d: fused pure-decimation DSD -> PCM, one pass from raw DSD bytes to
-// wire bytes, for every pure ÷2^k chain (÷8 ... ÷128).
+// K1a-K1e: fused pure-decimation DSD -> PCM, one pass from raw DSD bytes to
+// wire bytes (or, as the head of a 48k-family chain, to planar f32), for
+// every pure ÷2^k chain (÷8 ... ÷128).
 //
 // Replaces the TPU kernel dsd2dxd_tpu/ops/fused.py::_build_kernel (launched
 // by make_fused_step's pallas_call) in all of its pure-decimation modes:
@@ -7,14 +8,21 @@
 //   K1b  G=2/4 word lanes (÷16, ÷32);
 //   K1c  the à-trous tail of the ÷64/÷128 chains (G=4 head + dilated tail,
 //        phase 0 taken after);
-//   K1d  the 16-bit, 20-bit and 32-bit float (NONE/FPD) epilogues.
+//   K1d  the 16-bit, 20-bit and 32-bit float (NONE/FPD) epilogues;
+//   K1e  the float head of the 48k-family chains (make_fused_rational_step:
+//        bit_depth 32, no dither, level 0): the gain-1 cascade output
+//        written as planar f32, out[c * T_out + m], with no peak. The
+//        ×160/147 tail and the finish kernel (K2, finish.cu) take it from
+//        there.
 // Word lanes and the undecimated à-trous tail exist only for the TPU's
 // layout. Here every stage is computed decimated and directly, so the four
 // modes are one cascade of up to MAX_STAGES stages and one epilogue chosen
-// at compile time (template <BITS, DITHER>, one instantiation per epilogue).
-// Plain version: dsd2dxd_tpu_torch/ops/fused.py::fused_decim_reference; the
-// two agree bit for bit on the card (same products, same pairwise sum
-// order, same Philox draws, no FMA contraction).
+// at compile time (template <BITS, DITHER, PLANAR>, one instantiation per
+// epilogue plus the planar head). Plain version:
+// dsd2dxd_tpu_torch/ops/fused.py::fused_decim_reference (K1e:
+// fused_decim_cascade with gain 1); the two agree bit for bit on the card
+// (same products, same pairwise sum order, same Philox draws, no FMA
+// contraction).
 //
 // What it computes, per channel and output frame m of the tile (R = prod M_s,
 // frame_bytes = R / 8 input bytes per output frame):
@@ -57,19 +65,16 @@
 // - peak: frames m >= n_valid (the idle pad of a partial final tile, where
 //   the filter rings) are left out; warp max, block max, one atomicMax on the
 //   bit pattern of the non-negative f32 (order-independent, deterministic).
-// - dither: Philox4x32-10, counter (frame, channel, 0, 0), key from the
-//   wrapper; uniforms (x >> 8) * 2^-24; TPDF and FPD (u0 + u1) - 1,
-//   RECT u0 - 0.5. FPD's ulp is f32(bits(y) & 0x7F800000) * 2^-23, as the
-//   TPU kernel takes it.
+// - dither and the wire word: epilogue.cuh, shared with K2. FPD's ulp is
+//   f32(bits(y) & 0x7F800000) * 2^-23, as the TPU kernel takes it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#define MAX_STAGES 8
-#define THREADS 256
-#define MAX_LEVELS 8  // tree levels: taps per stage < 256
+#include "epilogue.cuh"
 
-enum { DITHER_NONE = 0, DITHER_TPDF = 1, DITHER_RECT = 2, DITHER_FPD = 3 };
+#define MAX_STAGES 8
+#define MAX_LEVELS 8  // tree levels: taps per stage < 256
 
 struct DecimParams {
   int n_stages;
@@ -98,28 +103,8 @@ struct DecimParams {
   uint32_t key0;
   uint32_t key1;
   int big_endian;
+  int planar;        // K1e: planar f32 out[c * tile_frames + m], no peak
 };
-
-__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
-                                              uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]);
-    const uint32_t lo0 = 0xD2511F53u * c[0];
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]);
-    const uint32_t lo1 = 0xCD9E8D57u * c[2];
-    const uint32_t n0 = hi1 ^ c[1] ^ k0;
-    const uint32_t n2 = hi0 ^ c[3] ^ k1;
-    c[0] = n0;
-    c[1] = lo1;
-    c[2] = n2;
-    c[3] = lo0;
-  }
-}
 
 // sum_{k<n} h[k] * src[-k], summed pairwise in the order of the plain
 // version's tree_sum.
@@ -150,44 +135,7 @@ __device__ __forceinline__ float fir_tree(const float* __restrict__ h,
   return out;
 }
 
-// The wire word of one sample (its bytes low first) for epilogue
-// <BITS, DITHER>; y is the gain-scaled cascade output of frame m.
-template <int BITS, int DITHER>
-__device__ __forceinline__ uint32_t epilogue(float y, uint32_t m, uint32_t c,
-                                             uint32_t k0, uint32_t k1) {
-  float u0 = 0.0f, u1 = 0.0f;
-  if constexpr (DITHER != DITHER_NONE) {
-    uint32_t ctr[4] = {m, c, 0u, 0u};
-    philox4x32_10(ctr, k0, k1);
-    u0 = __uint2float_rn(ctr[0] >> 8) * 5.9604644775390625e-08f;  // 2^-24
-    u1 = __uint2float_rn(ctr[1] >> 8) * 5.9604644775390625e-08f;
-  }
-  if constexpr (BITS == 32) {
-    float v = y;
-    if constexpr (DITHER == DITHER_FPD) {
-      const float tpdf = __fadd_rn(__fadd_rn(u0, u1), -1.0f);
-      const float ulp = __fmul_rn(
-          __int_as_float(__float_as_int(y) & 0x7F800000),
-          1.1920928955078125e-07f);  // 2^-23
-      v = __fadd_rn(y, __fmul_rn(tpdf, ulp));
-    }
-    return __float_as_uint(v);
-  } else {
-    const float scale = (float)(1 << (BITS - 1));
-    float v = __fmul_rn(y, scale);
-    if constexpr (DITHER == DITHER_TPDF) {
-      v = __fadd_rn(v, __fadd_rn(__fadd_rn(u0, u1), -1.0f));
-    } else if constexpr (DITHER == DITHER_RECT) {
-      v = __fadd_rn(v, __fadd_rn(u0, -0.5f));
-    }
-    const float q = fminf(fmaxf(rintf(v), -scale), scale - 1.0f);
-    uint32_t w = (uint32_t)(int)q;
-    if constexpr (BITS == 20) w <<= 4;  // 20 significant bits at the top of 24
-    return w;
-  }
-}
-
-template <int BITS, int DITHER>
+template <int BITS, int DITHER, bool PLANAR>
 __global__ void __launch_bounds__(THREADS)
 fused_decim_kernel(const uint8_t* __restrict__ halo,
                    const uint8_t* __restrict__ x,
@@ -195,7 +143,6 @@ fused_decim_kernel(const uint8_t* __restrict__ halo,
                    float* __restrict__ peak, const DecimParams p) {
   constexpr int BPS = BITS == 16 ? 2 : (BITS == 32 ? 4 : 3);
   extern __shared__ float smem[];
-  __shared__ float warp_max[THREADS / 32];
   const int c = blockIdx.y;
   const long long m0 = (long long)blockIdx.x * p.block_out;
   const long long H = p.halo_bytes;
@@ -244,35 +191,23 @@ fused_decim_kernel(const uint8_t* __restrict__ halo,
     if (m >= p.tile_frames) break;
     float y = fir_tree(h, in + md * j + n - 1, n);
     if (p.apply_gain) y = __fmul_rn(y, p.gain);
-    if (m < p.n_valid) local_peak = fmaxf(local_peak, fabsf(y));
-    const uint32_t w =
-        epilogue<BITS, DITHER>(y, (uint32_t)m, (uint32_t)c, p.key0, p.key1);
-    uint8_t* o = out + (m * p.channels + c) * BPS;
-#pragma unroll
-    for (int b = 0; b < BPS; ++b)
-      o[p.big_endian ? BPS - 1 - b : b] = (uint8_t)(w >> (8 * b));
+    if constexpr (PLANAR) {
+      reinterpret_cast<float*>(out)[c * (long long)p.tile_frames + m] = y;
+    } else {
+      if (m < p.n_valid) local_peak = fmaxf(local_peak, fabsf(y));
+      const uint32_t w =
+          epilogue<BITS, DITHER>(y, (uint32_t)m, (uint32_t)c, p.key0, p.key1);
+      store_wire<BPS>(out + (m * p.channels + c) * BPS, w, p.big_endian);
+    }
   }
-
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    local_peak = fmaxf(local_peak, __shfl_xor_sync(0xffffffffu, local_peak, off));
-  if ((tid & 31) == 0) warp_max[tid >> 5] = local_peak;
-  __syncthreads();
-  if (tid < 32) {
-    float v = tid < (int)(blockDim.x / 32) ? warp_max[tid] : 0.0f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    // |y| >= 0: its f32 bit pattern orders like the value
-    if (tid == 0) atomicMax(reinterpret_cast<int*>(peak), __float_as_int(v));
-  }
+  if constexpr (!PLANAR) block_peak(local_peak, peak);
 }
 
-template <int BITS, int DITHER>
+template <int BITS, int DITHER, bool PLANAR = false>
 static int launch(const void* halo, const void* x, const void* taps,
                   void* out, void* peak, const DecimParams* p,
                   cudaStream_t stream) {
-  auto kernel = fused_decim_kernel<BITS, DITHER>;
+  auto kernel = fused_decim_kernel<BITS, DITHER, PLANAR>;
   if (p->smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p->smem_bytes);
@@ -294,6 +229,11 @@ extern "C" int dsd2dxd_fused_decim(const void* halo, const void* x,
   if (p->n_stages < 1 || p->n_stages > MAX_STAGES || p->tile_frames < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (p->planar) {
+    if (p->bit_depth != 32 || p->dither != DITHER_NONE)
+      return (int)cudaErrorInvalidValue;
+    return launch<32, DITHER_NONE, true>(halo, x, taps, out, peak, p, s);
+  }
   switch (p->bit_depth * 4 + p->dither) {
     case 16 * 4 + DITHER_NONE: return launch<16, DITHER_NONE>(halo, x, taps, out, peak, p, s);
     case 16 * 4 + DITHER_TPDF: return launch<16, DITHER_TPDF>(halo, x, taps, out, peak, p, s);

@@ -1,11 +1,13 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, which ``ctypes`` loads. The library lands in
-``dsd2dxd_tpu_torch/_build/`` (gitignored), named by a hash of the
-sources and flags, and is built at first use -- never at import, so the
-package imports where there is no CUDA toolkit. A failed build raises;
-nothing falls back to the plain PyTorch versions.
+Each source compiles with its own ``nvcc`` for ``sm_90a`` (all started
+together), and the objects link into one shared library with a plain C
+interface, which ``ctypes`` loads. The library lands in
+``dsd2dxd_tpu_torch/_build/`` (gitignored), named by a hash of every file
+under ``csrc/`` (headers included) and the flags, and is built at first
+use -- never at import, so the package imports where there is no CUDA
+toolkit. A failed build raises; nothing falls back to the plain PyTorch
+versions.
 
 Each C entry returns ``cudaGetLastError()`` after its launch, and the
 Python wrapper raises when that is not 0: a refused launch never runs,
@@ -26,9 +28,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_decim.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("fused_decim.cu", "finish.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 MAX_STAGES = 8  # must equal MAX_STAGES in csrc/fused_decim.cu
 
@@ -65,6 +68,25 @@ class DecimParams(ctypes.Structure):
         ("key0", ctypes.c_uint32),
         ("key1", ctypes.c_uint32),
         ("big_endian", ctypes.c_int),
+        ("planar", ctypes.c_int),
+    ]
+
+
+class FinishParams(ctypes.Structure):
+    """Mirror of ``struct FinishParams`` in csrc/finish.cu (two 8-byte
+    fields first, then 4-byte ones: no padding on either side; the loader
+    compares sizeof)."""
+
+    _fields_ = [
+        ("n_frames", ctypes.c_longlong),
+        ("n_valid", ctypes.c_longlong),
+        ("channels", ctypes.c_int),
+        ("gain", ctypes.c_float),
+        ("bit_depth", ctypes.c_int),
+        ("dither", ctypes.c_int),
+        ("key0", ctypes.c_uint32),
+        ("key1", ctypes.c_uint32),
+        ("big_endian", ctypes.c_int),
     ]
 
 
@@ -82,11 +104,13 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _digest() -> str:
+def _digest(csrc: Path = CSRC) -> str:
+    """Hash of the flags and of every file under `csrc` (sources and the
+    headers they include), so an edit to a header alone rebuilds."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for f in sorted(q for q in csrc.rglob("*") if q.is_file()):
+        h.update(f.relative_to(csrc).as_posix().encode())
+        h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -99,17 +123,34 @@ def build() -> Path:
         return lib_path
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = res.stdout + res.stderr
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, lib_path)
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(CSRC / name)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for name, o in zip(SOURCES, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        BUILD_LOG = "".join(logs)
+        bad = [(name, proc.returncode)
+               for name, proc in zip(SOURCES, procs) if proc.returncode]
+        if not bad:
+            res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o",
+                                  str(tmp), *map(str, objs)],
+                                 capture_output=True, text=True)
+            BUILD_LOG += res.stdout + res.stderr
+            if res.returncode:
+                bad = [("link", res.returncode)]
+        BUILD_SECONDS = time.perf_counter() - t0
+        if bad:
+            raise RuntimeError(f"nvcc failed {bad}:\n{BUILD_LOG}")
+        os.replace(tmp, lib_path)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return lib_path
 
 
@@ -135,5 +176,18 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,  # cudaStream_t
         ]
         lib.dsd2dxd_fused_decim.restype = ctypes.c_int
+        lib.dsd2dxd_finish_params_size.argtypes = []
+        lib.dsd2dxd_finish_params_size.restype = ctypes.c_int
+        if lib.dsd2dxd_finish_params_size() != ctypes.sizeof(FinishParams):
+            raise RuntimeError("FinishParams layout differs between "
+                               "kernels.py and csrc/finish.cu")
+        lib.dsd2dxd_finish.argtypes = [
+            ctypes.c_void_p,  # z (C, n_frames) f32
+            ctypes.c_void_p,  # out (n_frames*C*bytes_per_sample,) u8
+            ctypes.c_void_p,  # peak f32[1], zeroed
+            ctypes.POINTER(FinishParams),
+            ctypes.c_void_p,  # cudaStream_t
+        ]
+        lib.dsd2dxd_finish.restype = ctypes.c_int
         _lib = lib
         return lib

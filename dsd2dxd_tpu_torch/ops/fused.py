@@ -1,12 +1,16 @@
 """The fused decimation step (K1a-K1d): raw DSD bytes -> PCM wire bytes in
-one pass, for every pure ÷2^k chain.
+one pass, for every pure ÷2^k chain; and the two kernels of the 48k-family
+step (K1e, the float head, and K2, the finish), whose step is
+``ops/rational.py``.
 
 Counterpart of ``dsd2dxd_tpu/ops/fused.py`` for the forms of
 ``_build_kernel`` that ``make_fused_step`` builds for pure-decimation
 chains: G=1 (K1a), G=2/4 word lanes (K1b), the ÷64/÷128 à-trous tail
-(K1c), and the 16/20-bit and f32/FPD epilogues (K1d). The CUDA kernel is
-``csrc/fused_decim.cu``; ``fused_decim_reference`` below is its plain
-PyTorch version.
+(K1c), the 16/20-bit and f32/FPD epilogues (K1d), and the float head of
+``make_fused_rational_step`` (K1e); and of ``make_finish_planes`` (K2).
+The CUDA kernels are ``csrc/fused_decim.cu`` and ``csrc/finish.cu``;
+``fused_decim_reference``, ``fused_decim_cascade`` and
+``finish_reference`` below are their plain PyTorch versions.
 
 Semantics carried over from the JAX kernel:
 
@@ -71,8 +75,8 @@ _FLOAT_DITHERS = (DitherType.NONE, DitherType.FPD)
 # nowhere else): a run shows it went through the kernel by reading these.
 # MODE_LAUNCHES counts each launch under the TPU-kernel modes it ports
 # (``kernel_modes``).
-KERNEL_LAUNCHES = 0
-MODE_LAUNCHES = {"K1a": 0, "K1b": 0, "K1c": 0, "K1d": 0}
+KERNEL_LAUNCHES = 0  # fused_decim launches (K1a-K1e)
+MODE_LAUNCHES = {"K1a": 0, "K1b": 0, "K1c": 0, "K1d": 0, "K1e": 0, "K2": 0}
 _launch_lock = threading.Lock()
 
 
@@ -269,6 +273,23 @@ def decim_epilogue(y: torch.Tensor, tile_key: int, cfg: StepConfig,
     return _wire_bytes(q, bytes_per_sample(cfg.bit_depth), big_endian), peak
 
 
+def finish_reference(z: torch.Tensor, gain: float, tile_key: int,
+                     cfg: StepConfig, big_endian: bool = False,
+                     n_valid: Optional[int] = None):
+    """Plain version of K2 on the (C, n) f32 final-rate samples z: the
+    epilogue of gain * z (gain the f32 the kernel multiplies by), with
+    the same Philox counter (frame, channel) under the tile's key.
+
+    This is the finish of the JAX rational step (``phase.finish_tile``:
+    level gain and peak on the final samples, then dither and quantize;
+    the Pallas ``make_finish_planes`` for 16/20/24 bit). Its noise is the
+    port's Philox, not the TPU's bits or threefry; FPD takes the ulp from
+    the exponent bits, as K1 does, where ``resample.dither_float32`` takes
+    2^(floor(log2|y|) - 23): the two are equal for every normal f32, and
+    this one leaves zeros and denormals undithered."""
+    return decim_epilogue(z * gain, tile_key, cfg, big_endian, n_valid)
+
+
 def fused_decim_reference(x_u8: torch.Tensor, halo: torch.Tensor,
                           tile_key: int, taps: Sequence[torch.Tensor],
                           chain: Sequence[Stage], cfg: StepConfig,
@@ -300,6 +321,16 @@ def _smem(lay: BlockLayout) -> tuple[int, int, int]:
             4 * (n_taps_total + a_len + b_len))
 
 
+def check_epilogue(cfg: StepConfig) -> None:
+    """Raise ConfigError for an epilogue K1 and K2 do not have."""
+    if cfg.bit_depth not in (16, 20, 24, 32):
+        raise ConfigError(f"no {cfg.bit_depth}-bit output")
+    allowed = _FLOAT_DITHERS if cfg.bit_depth == 32 else _INT_DITHERS
+    if cfg.dither not in allowed:
+        raise ConfigError(f"the kernels have no {cfg.dither} path at "
+                          f"{cfg.bit_depth} bit")
+
+
 def check_step_config(chain: Sequence[Stage], cfg: StepConfig) -> None:
     """Raise ConfigError for what the kernel does not cover."""
     r = decimation(chain)
@@ -307,12 +338,7 @@ def check_step_config(chain: Sequence[Stage], cfg: StepConfig) -> None:
         raise ConfigError(f"the fused kernel covers pure ÷2^k chains (L=1, "
                           f"÷8 and deeper, <= {kernels.MAX_STAGES} stages "
                           f"of < 256 taps) only")
-    if cfg.bit_depth not in (16, 20, 24, 32):
-        raise ConfigError(f"no {cfg.bit_depth}-bit output")
-    allowed = _FLOAT_DITHERS if cfg.bit_depth == 32 else _INT_DITHERS
-    if cfg.dither not in allowed:
-        raise ConfigError(f"the fused kernel has no {cfg.dither} path at "
-                          f"{cfg.bit_depth} bit")
+    check_epilogue(cfg)
     halo = chain_halo_bytes(chain)
     if cfg.tile_bytes < halo:
         raise ConfigError(f"tile of {cfg.tile_bytes} bytes is shorter "
@@ -323,7 +349,8 @@ def check_step_config(chain: Sequence[Stage], cfg: StepConfig) -> None:
 
 
 def _kernel_params(chain, cfg: StepConfig, halo_bytes: int, tile_key: int,
-                   big_endian: bool, n_valid: int) -> kernels.DecimParams:
+                   big_endian: bool, n_valid: int,
+                   planar: bool = False) -> kernels.DecimParams:
     lay = block_layout(chain, halo_bytes, block_out_for(chain))
     p = kernels.DecimParams()
     p.n_stages = len(chain)
@@ -354,7 +381,30 @@ def _kernel_params(chain, cfg: StepConfig, halo_bytes: int, tile_key: int,
     p.key0 = tile_key & 0xFFFFFFFF
     p.key1 = (tile_key >> 32) & 0xFFFFFFFF
     p.big_endian = int(big_endian)
+    p.planar = int(planar)
     return p
+
+
+def _launch_decim(x_u8: torch.Tensor, halo: torch.Tensor,
+                  taps_flat: torch.Tensor, out: torch.Tensor,
+                  peak: Optional[torch.Tensor], params: kernels.DecimParams,
+                  modes: Sequence[str]) -> None:
+    """Launch fused_decim on the current stream, raise if the launch
+    fails, else count it under `modes`."""
+    global KERNEL_LAUNCHES
+    lib = kernels.load()
+    stream = torch.cuda.current_stream(x_u8.device).cuda_stream
+    rc = lib.dsd2dxd_fused_decim(
+        halo.data_ptr(), x_u8.data_ptr(), taps_flat.data_ptr(),
+        out.data_ptr(), None if peak is None else peak.data_ptr(),
+        ctypes.byref(params), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_decim ({'+'.join(modes)}) launch failed: "
+                           f"CUDA error {rc}")
+    with _launch_lock:
+        KERNEL_LAUNCHES += 1
+        for mode in modes:
+            MODE_LAUNCHES[mode] += 1
 
 
 def fused_decim_cuda(x_u8: torch.Tensor, halo: torch.Tensor, tile_key: int,
@@ -363,8 +413,6 @@ def fused_decim_cuda(x_u8: torch.Tensor, halo: torch.Tensor, tile_key: int,
                      n_valid: Optional[int] = None):
     """Launch the kernel on the current stream. Same contract as
     ``fused_decim_reference``; raises if the launch fails."""
-    global KERNEL_LAUNCHES
-    lib = kernels.load()
     c, t = x_u8.shape
     t_out = t * 8 // decimation(chain)
     n = t_out if n_valid is None else max(0, min(int(n_valid), t_out))
@@ -373,19 +421,62 @@ def fused_decim_cuda(x_u8: torch.Tensor, halo: torch.Tensor, tile_key: int,
     peak = torch.zeros(1, dtype=torch.float32, device=x_u8.device)
     params = _kernel_params(chain, cfg, halo.shape[1], tile_key, big_endian,
                             n)
-    stream = torch.cuda.current_stream(x_u8.device).cuda_stream
-    rc = lib.dsd2dxd_fused_decim(halo.data_ptr(),
-                                 x_u8.data_ptr(), taps_flat.data_ptr(),
-                                 out.data_ptr(), peak.data_ptr(),
-                                 ctypes.byref(params), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_decim launch failed: CUDA error {rc}")
-    with _launch_lock:
-        KERNEL_LAUNCHES += 1
-        for mode in kernel_modes(chain, cfg.bit_depth):
-            MODE_LAUNCHES[mode] += 1
+    _launch_decim(x_u8, halo, taps_flat, out, peak, params,
+                  kernel_modes(chain, cfg.bit_depth))
     new_halo = x_u8[:, t - halo.shape[1]:].clone()
     return out, peak[0], new_halo
+
+
+def fused_head_cuda(x_u8: torch.Tensor, halo: torch.Tensor,
+                    taps_flat: torch.Tensor,
+                    chain: Sequence[Stage]) -> torch.Tensor:
+    """K1e: launch the kernel in its planar mode on the current stream:
+    (C, T_out) f32, the gain-1 undithered cascade output of the tile (no
+    peak). Same result as ``fused_decim_cascade(x_u8, halo, taps, chain,
+    1.0)``; raises if the launch fails."""
+    c, t = x_u8.shape
+    t_out = t * 8 // decimation(chain)
+    out = torch.empty((c, t_out), dtype=torch.float32, device=x_u8.device)
+    cfg = StepConfig(channels=c, tile_bytes=t, bit_depth=32,
+                     dither=DitherType.NONE, level_db=0.0)
+    params = _kernel_params(chain, cfg, halo.shape[1], 0, False, t_out,
+                            planar=True)
+    _launch_decim(x_u8, halo, taps_flat, out, None, params, ("K1e",))
+    return out
+
+
+def finish_cuda(z: torch.Tensor, gain: float, tile_key: int,
+                cfg: StepConfig, big_endian: bool = False,
+                n_valid: Optional[int] = None):
+    """K2: launch the finish kernel on the current stream. Same contract
+    as ``finish_reference``: (wire bytes (n*C*bps,) uint8, peak f32 0-d);
+    raises if the launch fails."""
+    lib = kernels.load()
+    if z.dtype != torch.float32 or z.dim() != 2 or not z.is_contiguous():
+        raise ValueError(f"want contiguous (C, n) f32, got {z.dtype} "
+                         f"{tuple(z.shape)}")
+    c, n = z.shape
+    out = torch.empty(n * c * bytes_per_sample(cfg.bit_depth),
+                      dtype=torch.uint8, device=z.device)
+    peak = torch.zeros(1, dtype=torch.float32, device=z.device)
+    p = kernels.FinishParams()
+    p.n_frames = n
+    p.n_valid = n if n_valid is None else max(0, min(int(n_valid), n))
+    p.channels = c
+    p.gain = gain
+    p.bit_depth = cfg.bit_depth
+    p.dither = _DITHER_CODE[cfg.dither]
+    p.key0 = tile_key & 0xFFFFFFFF
+    p.key1 = (tile_key >> 32) & 0xFFFFFFFF
+    p.big_endian = int(big_endian)
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    rc = lib.dsd2dxd_finish(z.data_ptr(), out.data_ptr(), peak.data_ptr(),
+                            ctypes.byref(p), stream)
+    if rc != 0:
+        raise RuntimeError(f"finish (K2) launch failed: CUDA error {rc}")
+    with _launch_lock:
+        MODE_LAUNCHES["K2"] += 1
+    return out, peak[0]
 
 
 def make_fused_step(chain: Sequence[Stage], cfg: StepConfig, device,

@@ -2,13 +2,15 @@
 
 The counterpart of the planning half of ``dsd2dxd_tpu/ops/phase.py``
 (``PhaseTerm``, ``PhasePlan``, ``build_plan``, ``build_chain_plans``,
-``tree_sum``, ``chain_tile_unit_bits``). That module imports jax at load,
-so the port carries its own copy; ``tests/test_torch_plan.py`` holds the
+``tree_sum``, ``chain_tile_unit_bits``, ``plan_banded_natural``). That
+module imports jax at load, so the port carries its own copy;
+``tests/test_torch_plan.py`` and ``tests/test_torch_rational.py`` hold the
 two term by term.
 
 ``params_from_chain`` hands the filter taps to the port as f32 tensors
 (the same ``filters/design.get_chain`` tables the JAX package uses), and
-``state_from_jax`` takes a JAX fused halo as the port's streaming state.
+``state_from_jax`` takes a JAX fused state (a halo, or a 48k chain's halo
+and tail history) as the port's streaming state.
 """
 
 from __future__ import annotations
@@ -136,6 +138,35 @@ def chain_tile_unit_bits(plans: Sequence[PhasePlan]) -> int:
     return unit
 
 
+def plan_banded_natural(plan: PhasePlan):
+    """Natural-layout band of an upsampling rational stage (the ×160/147
+    tail of every 48k-family chain), as ``phase.plan_banded_natural``.
+
+    Output block k (p_out samples) reads exactly the p_in + nhist
+    consecutive input samples p_in k - nhist ... p_in k + p_in - 1, so the
+    stage is one (C, K, U) @ (U, p_out) product with U = p_in + nhist.
+    Returns (band (p_out, U) f32 ndarray, nhist), or None when the plan
+    is not band-shaped (a decimating stage, a band wider than one block,
+    or a phase with gaps)."""
+    p = plan.p_in
+    offs_all = []
+    for terms in plan.terms:
+        offs = sorted(t.base * p + t.r_in for t in terms)
+        if any(b - a != 1 for a, b in zip(offs, offs[1:])):
+            return None
+        offs_all.append(offs)
+    omin = min(o[0] for o in offs_all)
+    omax = max(o[-1] for o in offs_all)
+    nhist = -omin
+    if nhist <= 0 or nhist > p or omax >= p or plan.hist_lanes != 1:
+        return None
+    band = np.zeros((plan.p_out, p + nhist), dtype=np.float32)
+    for rho, terms in enumerate(plan.terms):
+        for t in terms:
+            band[rho, t.base * p + t.r_in + nhist] += t.coef
+    return band, nhist
+
+
 @dataclass(frozen=True)
 class StageParams:
     """One stage as the port runs it: f32 taps (upfirdn convention) and
@@ -155,13 +186,24 @@ def params_from_chain(chain: Sequence[Stage], p0: int = 8) -> tuple[StageParams,
         for s, p in zip(chain, plans))
 
 
-def state_from_jax(halo: np.ndarray) -> torch.Tensor:
-    """A JAX fused halo as the port's streaming state. The JAX step keeps
-    (C, halo_lanes) words of G stream bytes -- uint8, uint16 or uint32
-    for G = 1, 2, 4, as ``init_fused_halo`` makes them -- which are the
-    little-endian view of the last halo_lanes * G input bytes; the port
-    keeps those bytes, (C, halo_lanes * G) uint8."""
-    a = np.asarray(halo)
+def state_from_jax(state):
+    """A JAX fused state as the port's streaming state.
+
+    A pure ÷2^k chain's JAX step keeps (C, halo_lanes) words of G stream
+    bytes -- uint8, uint16 or uint32 for G = 1, 2, 4, as
+    ``init_fused_halo`` makes them -- which are the little-endian view of
+    the last halo_lanes * G input bytes; the port keeps those bytes,
+    (C, halo_lanes * G) uint8. A 48k-family chain's JAX step keeps
+    (halo words, tail history (C, p_in, 1) f32); the port keeps (halo
+    bytes, history (C, p_in) f32), the last p_in head samples."""
+    if isinstance(state, tuple):
+        halo, hist = state
+        h = np.asarray(hist, dtype=np.float32)
+        if h.ndim != 3 or h.shape[2] != 1:
+            raise ValueError(f"want a (C, p_in, 1) tail history, got "
+                             f"{h.shape}")
+        return state_from_jax(halo), torch.from_numpy(h[:, :, 0].copy())
+    a = np.asarray(state)
     if a.ndim != 2 or a.dtype.kind != "u" or a.dtype.itemsize not in (1, 2, 4):
         raise ValueError(f"want a (C, halo_lanes) uint8/16/32 halo, got "
                          f"{a.shape} {a.dtype}")

@@ -1,5 +1,6 @@
 """Conversion engine of the port: DSD in, 16/20/24-bit or 32-bit float PCM
-wire bytes out, for every pure ÷2^k chain.
+wire bytes out, for every pure ÷2^k chain (the 44.1k family) and every
+48k-family chain (a ÷2^m head and the ×160/147 stage).
 
 Counterpart of ``dsd2dxd_tpu/pipeline/engine.py`` for the ported slice
 (``_file_seed``, ``_tile_bytes_for``, ``_cached_step``, ``Converter.new`` /
@@ -10,7 +11,8 @@ Pipeline on a CUDA device, per tile t (ring of MAX_PENDING_DRAINS + 1
 slots): the host reads and bit-normalises the tile into a pinned buffer;
 a copy stream uploads it (``non_blocking``) and records an event; the
 compute stream waits on that event, launches the fused decimation kernel
-and copies the wire bytes and the peak back into pinned buffers; one
+(48k family: the head kernel K1e, the tail's matmul and the finish kernel
+K2) and copies the wire bytes and the peak back into pinned buffers; one
 drain thread waits for that copy and writes ``bytes[:n_valid * C * bps]``
 in stream order, while the main thread already reads tile t+1. At most
 MAX_PENDING_DRAINS drains are outstanding. On the CPU (only when asked
@@ -54,7 +56,7 @@ from dsd2dxd_tpu.formats.dsd_types import (
 from dsd2dxd_tpu.formats.source import DsdSource, open_raw_file, raw_source
 from dsd2dxd_tpu.pipeline.engine import open_container
 from dsd2dxd_tpu.utils.errors import CancelledError, ConfigError
-from dsd2dxd_tpu_torch.ops import fused
+from dsd2dxd_tpu_torch.ops import fused, rational
 from dsd2dxd_tpu_torch.ops.philox import tile_key
 from dsd2dxd_tpu_torch.ops.plan import build_chain_plans, chain_tile_unit_bits
 from dsd2dxd_tpu_torch.ops.resample import StepConfig
@@ -83,9 +85,15 @@ def _file_seed(path: Optional[Path]) -> int:
 
 def _tile_bytes_for(chain, target_bytes: int) -> int:
     """Tile size (bytes/channel): at least `target_bytes`, a whole number
-    of the chain's lane unit and of the kernel's output block."""
-    unit_bits = math.lcm(chain_tile_unit_bits(build_chain_plans(chain)),
-                         fused.block_out_for(chain) * fused.decimation(chain))
+    of the (head) chain's lane unit and of the kernel's output block; for
+    a 48k-family chain also of the rational stage's 147 base samples
+    (lcm(147 R_head, block_out R_head) bits)."""
+    n_head = rational.rational_head_len(chain)
+    head = chain if n_head is None else chain[:n_head]
+    unit_bits = math.lcm(chain_tile_unit_bits(build_chain_plans(head)),
+                         fused.block_out_for(head) * fused.decimation(head))
+    if n_head is not None:
+        unit_bits = math.lcm(unit_bits, rational.rational_plan(chain).unit_bits)
     n_units = max(1, -(-target_bytes * 8 // unit_bits))
     return n_units * unit_bits // 8
 
@@ -96,6 +104,13 @@ def _cached_step(chain_key, cfg: StepConfig, device: torch.device,
     """(step(x, state, tile_key) -> (wire bytes, peak, state),
     make_state()) for one configuration on one device."""
     chain = get_chain(*chain_key)
+    if rational.rational_head_len(chain) is not None:
+        step = rational.make_rational_step(chain, cfg, device, big_endian)
+
+        def make_state():
+            return rational.init_rational_state(chain, cfg.channels, device)
+
+        return step, make_state
     step = fused.make_fused_step(chain, cfg, device, big_endian)
 
     def make_state():
@@ -109,11 +124,8 @@ def _unported(what: str, item: int) -> ConfigError:
                        f"yet (ROADMAP.md Queue 1 item {item})")
 
 
-def check_slice(chain, bit_depth: int, dither: DitherType,
-                output: OutputType) -> None:
+def check_slice(dither: DitherType, output: OutputType) -> None:
     """Raise ConfigError for a configuration outside the ported slice."""
-    if any(s.L != 1 for s in chain):
-        raise _unported("the 48k-family rational chain", 6)
     if output is OutputType.FLAC:
         raise _unported("FLAC output", 7)
     if dither is DitherType.NJAD:
@@ -194,8 +206,7 @@ class Converter:
         check_filter_choice(filt, info.rate, output_rate)
         if bit_depth not in (16, 20, 24, 32):
             raise ConfigError(f"Invalid bit depth: {bit_depth}")
-        check_slice(get_chain(filt, info.rate, output_rate), bit_depth,
-                    dither, output)
+        check_slice(dither, output)
         self.device = resolve_device(device)
         self.source = source
         self.input_path = Path(input_path) if input_path else None
@@ -310,8 +321,8 @@ class Converter:
                                         big_endian)
         state = make_state()
         seed_base = _file_seed(self.input_path)
-        out_bytes = (tile_bytes * 8 // fused.decimation(chain)
-                     * info.channels * bytes_per_sample(self.bit_depth))
+        out_bytes = (int(tile_bytes * 8 * ratio) * info.channels
+                     * bytes_per_sample(self.bit_depth))
         staging = (_Staging(self.device, info.channels, tile_bytes,
                             out_bytes, MAX_PENDING_DRAINS + 1)
                    if self.device.type == "cuda" else None)

@@ -17,7 +17,7 @@ from dsd2dxd_tpu.formats.dsd_types import (
     OutputType,
 )
 from dsd2dxd_tpu_torch import Converter
-from dsd2dxd_tpu_torch.ops import fused, philox
+from dsd2dxd_tpu_torch.ops import fused, philox, rational
 from dsd2dxd_tpu_torch.ops.resample import StepConfig
 
 pytestmark = pytest.mark.cuda
@@ -127,7 +127,7 @@ def test_mode_counts_on_card(cuda_device):
     step(x, fused.init_fused_halo(chain, 2, cuda_device), 1)
     after = fused.MODE_LAUNCHES
     assert {k: after[k] - before[k] for k in after} == {
-        "K1a": 0, "K1b": 0, "K1c": 1, "K1d": 1}
+        "K1a": 0, "K1b": 0, "K1c": 1, "K1d": 1, "K1e": 0, "K2": 0}
 
 
 @pytest.mark.parametrize("cell", ["E", "div16", "div128"])
@@ -174,7 +174,7 @@ def test_big_endian_bytes_on_card(cuda_device, bits):
 
 
 def _engine_equal(cuda_device, tmp_path, monkeypatch, rate, output_rate,
-                  bit_depth, dither):
+                  bit_depth, dither, output=OutputType.WAV):
     """The streamed CUDA pipeline (pinned buffers, copy and compute
     streams, drain thread) writes the same file as the CPU loop."""
     import dsd2dxd_tpu_torch.pipeline.engine as engine
@@ -190,7 +190,7 @@ def _engine_equal(cuda_device, tmp_path, monkeypatch, rate, output_rate,
         d = tmp_path / str(dev).replace(":", "")
         d.mkdir()
         conv = Converter.from_container(
-            bit_depth=bit_depth, output=OutputType.WAV, level_db=-1.0,
+            bit_depth=bit_depth, output=output, level_db=-1.0,
             output_rate=output_rate, out_dir=d, dither=dither,
             filt=FilterType.EQUIRIPPLE, append_rate=False, base_dir=tmp_path,
             input_path=src, device=dev)
@@ -223,3 +223,127 @@ def test_engine_on_card_equals_cpu_deep_20bit(cuda_device, tmp_path,
     db = _decode(torch.frombuffer(bytearray(b[head:]), dtype=torch.uint8), 20)
     assert a[:head] == b[:head]
     assert np.abs(da - db).max() <= 1
+
+
+# -- the 48k family: K1e (planar f32 head), the tail, K2 (finish) ------------
+
+CHAINS_48K = [(FilterType.EQUIRIPPLE, rate, out)
+              for rate in (DsdRate.DSD64, DsdRate.DSD128, DsdRate.DSD256)
+              for out in (96000, 192000, 384000)]
+
+
+@pytest.mark.parametrize("key", CHAINS_48K,
+                         ids=lambda k: f"{k[1].name}-{k[2] // 1000}k")
+def test_head_kernel_bit_equal_on_card(cuda_device, key):
+    """K1e against fused_decim_cascade(gain=1), two streamed tiles, one
+    ragged in its last block: bit-equal; one K1e launch each."""
+    chain = get_chain(*key)
+    rp = rational.rational_plan(chain)
+    head = chain[:rp.n_head]
+    taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32),
+                         device=cuda_device) for s in head]
+    flat = torch.cat(taps)
+    tile = rp.unit_bits // 8 * 3
+    rng = np.random.default_rng(31)
+    h = fused.init_fused_halo(head, 2, cuda_device)
+    for _ in range(2):
+        x = torch.from_numpy(rng.integers(0, 256, (2, tile),
+                                          dtype=np.uint8)).to(cuda_device)
+        before = fused.MODE_LAUNCHES["K1e"]
+        yk = fused.fused_head_cuda(x, h, flat, head)
+        assert fused.MODE_LAUNCHES["K1e"] == before + 1
+        yr = fused.fused_decim_cascade(x, h, taps, head, 1.0)
+        torch.cuda.synchronize()
+        assert torch.equal(yk, yr)
+        h = x[:, tile - h.shape[1]:].contiguous()
+
+
+@pytest.mark.parametrize("bits,dither", [
+    (b, d) for b in (16, 20, 24)
+    for d in (DitherType.NONE, DitherType.TPDF, DitherType.RECTANGULAR)]
+    + [(32, DitherType.NONE), (32, DitherType.FPD)])
+@pytest.mark.parametrize("big_endian", [False, True], ids=["LE", "BE"])
+def test_finish_kernel_matches_plain_on_card(cuda_device, bits, dither,
+                                             big_endian):
+    """K2 against finish_reference on the same f32 samples (some beyond
+    full scale): integer NONE within 5 LSB, dithered within 1 LSB, f32
+    NONE bit-equal, FPD within 1 ulp of the plain result; the peak of the
+    first n_valid frames equal."""
+    z = torch.from_numpy(np.random.default_rng(32).uniform(
+        -1.2, 1.2, (2, 100003)).astype(np.float32)).to(cuda_device)
+    cfg = StepConfig(channels=2, tile_bytes=8, bit_depth=bits, dither=dither,
+                     level_db=-1.5)
+    gain = fused._gain32(cfg)
+    key = philox.tile_key(5, 2)
+    before = fused.MODE_LAUNCHES["K2"]
+    wk, pk = fused.finish_cuda(z, gain, key, cfg, big_endian, 90000)
+    assert fused.MODE_LAUNCHES["K2"] == before + 1
+    wr, pr = fused.finish_reference(z, gain, key, cfg, big_endian, 90000)
+    torch.cuda.synchronize()
+    assert float(pk) == float(pr)
+    if big_endian:
+        bps = {16: 2, 20: 3, 24: 3, 32: 4}[bits]
+        wk, wr = (w.reshape(-1, bps).flip(1).reshape(-1) for w in (wk, wr))
+    if bits == 32 and dither is DitherType.NONE:
+        assert torch.equal(wk, wr)
+        return
+    a, b = _decode(wk, bits), _decode(wr, bits)
+    if bits == 32:
+        ulp = np.spacing(np.abs(b).astype(np.float32)).astype(np.float64)
+        assert np.all(np.abs(a - b) <= ulp)
+    else:
+        assert np.abs(a - b).max() <= (5 if dither is DitherType.NONE else 1)
+
+
+def test_rational_step_on_card_equals_plain(cuda_device):
+    """The whole step (K1e, the fp32 matmul tail, K2) against its plain
+    path on the card, three streamed tiles, 24-bit TPDF: within 1 LSB,
+    the same state."""
+    chain = get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD64, 192000)
+    rp = rational.rational_plan(chain)
+    tile = rp.unit_bits // 8 * 4
+    cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=24,
+                     dither=DitherType.TPDF, level_db=-1.5)
+    step = rational.make_rational_step(chain, cfg, cuda_device)
+    head = chain[:rp.n_head]
+    taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32),
+                         device=cuda_device) for s in head]
+    band_t = torch.from_numpy(rp.band.T.copy()).to(cuda_device)
+    state = rational.init_rational_state(chain, 2, cuda_device)
+    rng = np.random.default_rng(33)
+    for t in range(3):
+        x = torch.from_numpy(rng.integers(0, 256, (2, tile),
+                                          dtype=np.uint8)).to(cuda_device)
+        key = philox.tile_key(1, t)
+        wk, pk, new = step(x, state, key)
+        y = fused.fused_decim_cascade(x, state[0], taps, head, 1.0)
+        z, hist = rational.rational_tail(y, state[1], band_t, rp.nhist)
+        wr, pr = fused.finish_reference(z, fused._gain32(cfg), key, cfg)
+        torch.cuda.synchronize()
+        assert np.abs(_decode(wk) - _decode(wr)).max() <= 1
+        assert abs(float(pk) - float(pr)) <= 1e-6
+        assert torch.equal(new[1], hist)
+        state = new
+
+
+@pytest.mark.parametrize("rate,out,bits,dither,output", [
+    (DsdRate.DSD64, 96000, 24, DitherType.TPDF, OutputType.WAV),
+    (DsdRate.DSD256, 192000, 32, DitherType.FPD, OutputType.AIFC),
+], ids=["96k-24bit", "config4-192k-f32"])
+def test_engine_48k_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch,
+                                       rate, out, bits, dither, output):
+    a, b = _engine_equal(cuda_device, tmp_path, monkeypatch, rate, out,
+                         bits, dither, output)
+    assert len(a) == len(b)
+    be = output is not OutputType.WAV
+    head = a.index(b"SSND") + 16 if be else 44
+    assert a[:head] == b[:head]
+    if bits == 32:
+        da = np.frombuffer(a[head:], dtype=">f4").astype(np.float64)
+        db = np.frombuffer(b[head:], dtype=">f4").astype(np.float64)
+        # matmuls of the card and the CPU sum in other orders; FPD 1 ulp
+        assert np.abs(da - db).max() <= 1e-6
+    else:
+        da = _decode(torch.frombuffer(bytearray(a[head:]), dtype=torch.uint8))
+        db = _decode(torch.frombuffer(bytearray(b[head:]), dtype=torch.uint8))
+        assert np.abs(da - db).max() <= 1

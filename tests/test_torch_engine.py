@@ -145,16 +145,16 @@ def test_device_none_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    # what stays unported: FLAC and NJAD (item 7), the 48k family (item 6),
-    # at every depth, dither and word-lane chain
+    # what stays unported: FLAC and NJAD (item 7), at every depth, dither,
+    # word-lane chain and 48k-family rate
     dict(bit_depth=16, output=OutputType.FLAC),
     dict(bit_depth=20, dither=DitherType.NJAD),
-    dict(bit_depth=32, output_rate=192000),
-    dict(bit_depth=32, dither=DitherType.FPD, output_rate=384000),
+    dict(bit_depth=32, dither=DitherType.NJAD, output_rate=192000),
+    dict(bit_depth=16, output=OutputType.FLAC, output_rate=384000),
     dict(dither=DitherType.NJAD),
     dict(output=OutputType.FLAC), dict(output_rate=176400,
                                       output=OutputType.FLAC),
-    dict(output_rate=96000),
+    dict(output_rate=96000, output=OutputType.FLAC),
 ], ids=["16bit", "20bit", "32bit", "FPD", "NJAD", "FLAC", "G2", "48k"])
 def test_unported_configs_raise(tone_dsd64_stereo_dsf, tmp_path, kw):
     args = dict(bit_depth=24, output=OutputType.WAV, level_db=0.0,
@@ -172,6 +172,26 @@ def test_level_check_is_unported():
         TConverter.new_level_check(352800, None, FmtType.PLANAR,
                                    Endianness.MSB_FIRST, 2, 4096,
                                    DsdRate.DSD64)
+
+
+@pytest.mark.parametrize("rate", [96000, 192000])
+def test_48k_flac_njad_and_level_check_stay_unported(tone_dsd64_stereo_dsf,
+                                                     tmp_path, rate):
+    """At the 48k-family rates, which convert since the 48k family was
+    ported, FLAC, NJAD and the level check still raise, naming item 7."""
+    args = dict(bit_depth=24, output=OutputType.WAV, level_db=0.0,
+                output_rate=rate, out_dir=tmp_path,
+                dither=DitherType.TPDF, filt=FilterType.EQUIRIPPLE,
+                append_rate=False, base_dir=tone_dsd64_stereo_dsf.parent,
+                input_path=tone_dsd64_stereo_dsf, device="cpu")
+    for kw in (dict(output=OutputType.FLAC), dict(dither=DitherType.NJAD)):
+        with pytest.raises(ConfigError, match="item 7"):
+            TConverter.from_container(**{**args, **kw})
+    with pytest.raises(ConfigError, match="item 7"):
+        TConverter.new_level_check(rate, None, FmtType.PLANAR,
+                                   Endianness.MSB_FIRST, 2, 4096,
+                                   DsdRate.DSD64)
+    TConverter.from_container(**args)  # the same job as a WAV is ported
 
 
 def test_stdout_raw_equals_wav_payload(tone_dsd64_stereo_dsf, tmp_path,
@@ -312,3 +332,99 @@ def test_files_match_jax_converter(tone_dsd64_stereo_dsf, tmp_path,
     skip = HEAD_SKIP // (352800 // rate)
     assert np.abs(tv[skip:] - jv[skip:]).max() <= tol
     assert np.abs(tv).max() > 0.25 * (1 if bits == 32 else 1 << (bits - 1))
+
+
+# -- the 48k family: ÷2^m head, ×160/147 tail ---------------------------------
+
+@pytest.fixture
+def small_48k_tiles(monkeypatch):
+    """16 KiB/ch tiles of whole band blocks only (147 R_head bits, not
+    also whole kernel blocks), so a 0.5 s fixture spans many tiles."""
+    from dsd2dxd_tpu_torch.ops import rational
+
+    def tile_bytes(chain, _target):
+        unit = rational.rational_plan(chain).unit_bits
+        return -(-16 * 1024 * 8 // unit) * unit // 8
+
+    monkeypatch.setattr(tengine, "_tile_bytes_for", tile_bytes)
+
+@pytest.mark.parametrize("bits,output,rate,dither", [
+    (24, OutputType.WAV, 96000, DitherType.NONE),      # ÷32 head
+    (32, OutputType.AIFC, 192000, DitherType.FPD),     # ÷16 head, BE f32
+    (16, OutputType.AIFF, 384000, DitherType.NONE),    # ÷8 head, BE s16
+], ids=["24bit-wav-96k", "32bit-aifc-192k", "16bit-aiff-384k"])
+def test_48k_files_match_jax_converter(tone_dsd64_stereo_dsf, tmp_path,
+                                       small_48k_tiles, bits, output, rate,
+                                       dither):
+    """48k-family files against the JAX Converter (its CPU phase path,
+    zero-primed): headers byte-identical, the same length, samples within
+    5 LSB (float: 2e-6) past the first 5 ms, where the idle-primed head
+    and the zero-primed one differ."""
+    t_dir, j_dir = tmp_path / "t", tmp_path / "j"
+    t_dir.mkdir()
+    j_dir.mkdir()
+    convs = []
+    for cls, d, kw in ((TConverter, t_dir, dict(device="cpu")),
+                       (JConverter, j_dir, {})):
+        conv = cls.from_container(
+            bit_depth=bits, output=output, level_db=-1.0, output_rate=rate,
+            out_dir=d, dither=dither, filt=FilterType.EQUIRIPPLE,
+            append_rate=False, base_dir=tone_dsd64_stereo_dsf.parent,
+            input_path=tone_dsd64_stereo_dsf, **kw)
+        conv.do_conversion()
+        convs.append(conv)
+    assert convs[0].stats["tiles"] > 2
+    t, j = (c.output_path().read_bytes() for c in convs)
+    be = output is not OutputType.WAV
+    tag = b"SSND" if be else b"data"
+    off = t.index(tag) + 8 + (8 if be else 0)
+    assert t[:off] == j[:off] and len(t) == len(j)
+    if bits == 32:
+        assert t[:off].find(b"fl32") > 0
+        dt = ">f4"
+        tv = np.frombuffer(t[off:], dtype=dt).reshape(-1, 2)
+        jv = np.frombuffer(j[off:], dtype=dt).reshape(-1, 2)
+        tol = 2e-6
+    elif bits == 16:
+        tv = np.frombuffer(t[off:], dtype=">i2").astype(np.int64).reshape(-1, 2)
+        jv = np.frombuffer(j[off:], dtype=">i2").astype(np.int64).reshape(-1, 2)
+        tol = 5
+    else:
+        tv, jv = _s24(t[off:], be), _s24(j[off:], be)
+        tol = 5
+    assert tv.shape == jv.shape == (rate // 2, 2)
+    skip = rate // 200
+    assert np.abs(tv[skip:] - jv[skip:]).max() <= tol
+    assert np.abs(tv).max() > 0.25 * (1 if bits == 32 else 1 << (bits - 1))
+
+
+def test_cli_48k_float_aifc(tone_dsd64_stereo_dsf, tmp_path,
+                            small_48k_tiles):
+    """BASELINE config 4's command, `-b 32 -o C -r 192000`: an AIFC of
+    32-bit floats (FPD by default) with the 1 kHz tone, equal past the
+    noise to the Converter's undithered run."""
+    out = tmp_path / "out"
+    out.mkdir()
+    assert trun(["-b", "32", "-o", "C", "-r", "192000", "-q", "-p",
+                 str(out), str(tone_dsd64_stereo_dsf)], device="cpu") == 0
+    aifc = out / (tone_dsd64_stereo_dsf.stem + ".aifc")
+    data = aifc.read_bytes()
+    assert data[8:12] == b"AIFC" and b"fl32" in data[:200]
+    off = data.index(b"SSND") + 16
+    v = np.frombuffer(data[off:], dtype=">f4").reshape(-1, 2)
+    assert v.shape == (96000, 2)
+    ref = tmp_path / "ref"
+    ref.mkdir()
+    conv = TConverter.from_container(
+        bit_depth=32, output=OutputType.AIFC, level_db=0.0,
+        output_rate=192000, out_dir=ref, dither=DitherType.NONE,
+        filt=FilterType.EQUIRIPPLE, append_rate=False,
+        base_dir=tone_dsd64_stereo_dsf.parent,
+        input_path=tone_dsd64_stereo_dsf, device="cpu")
+    conv.do_conversion()
+    r = np.frombuffer(conv.output_path().read_bytes()[off:],
+                      dtype=">f4").reshape(-1, 2)
+    assert 0 < np.abs(v - r).max() <= 2.0 ** -22  # FPD: within one ulp
+    spec = np.abs(np.fft.rfft(v[960:, 0].astype(np.float64)))
+    freqs = np.fft.rfftfreq(len(v) - 960, 1 / 192000)
+    assert abs(freqs[np.argmax(spec)] - 1000.0) < 5.0

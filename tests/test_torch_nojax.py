@@ -29,6 +29,15 @@ x = torch.from_numpy(np.random.default_rng(0).integers(
     0, 256, (2, 1024), dtype=np.uint8))
 wire, peak, halo = step(x, fused.init_fused_halo(chain, 2), 1)
 assert wire.numel() == 1024 * 2 * 3 and float(peak) > 0
+from dsd2dxd_tpu_torch.ops import rational
+chain = get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD64, 192000)
+cfg = StepConfig(channels=2, tile_bytes=2352, bit_depth=32,
+                 dither=DitherType.FPD, level_db=0.0)
+x = torch.from_numpy(np.random.default_rng(0).integers(
+    0, 256, (2, 2352), dtype=np.uint8))
+wire, peak, state = rational.make_rational_step(chain, cfg, "cpu")(
+    x, rational.init_rational_state(chain, 2), 1)
+assert wire.numel() == 1280 * 2 * 4 and float(peak) > 0
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print(len(names))
 """
