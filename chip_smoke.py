@@ -7,9 +7,9 @@ Run from the root of a checkout. Phases, one line each (kernel-vs-plain
 one line per chain); any failed check exits non-zero:
 
 1. env: Python, torch and CUDA versions, nvcc, the card (nvidia-smi).
-2. build: compiles csrc/fused_decim.cu (K1a-K1e) and csrc/finish.cu (K2)
-   with one nvcc each, started together, and links them; prints every
-   instantiation's registers and spills.
+2. build: compiles csrc/fused_decim.cu (K1a-K1e), csrc/finish.cu (K2) and
+   csrc/probes.cu (P1, P2) with one nvcc each, started together, and
+   links them; prints every instantiation's registers and spills.
 3. kernel vs plain (K1a-K1d), two channels, three streamed tiles of the
    size the engine gives each input rate (4 MiB/ch at DSD64 ... 32 MiB/ch
    at DSD512), level -1.5 dB, the plain PyTorch version on the same inputs:
@@ -59,7 +59,21 @@ one line per chain); any failed check exits non-zero:
    through the CLI with `-b 32 -o C -r 192000` (FPD by default); checks
    the AIFC `fl32` header, 60 x 192000 frames, the 1 kHz peak on both
    channels and one K1e and one K2 launch per tile.
-10. timing: kernel and plain version per 16 MiB/ch stereo tile, CUDA
+10. probes: the floor probes of K1 (dsd2dxd_tpu_torch/tools). Every P1
+    mode (dmabench: noop, noflush, dma, halo0, contig, bspec) at each of
+    K1's blocks against its plain version on 2 staged 16 MiB/ch stereo
+    tiles, exact (noflush: each element of its shared output block is
+    some block's); every P2 rung (floorstrip on synth_chain(0.0): dma,
+    unpack, cas0a, cas0, quant, and full: K1 itself at the ladder's
+    block_out) on 2 staged 16 MiB/ch tiles, dma, unpack, cas0a and cas0
+    bit-equal, quant and full at TPDF with K1's limits. The one PyTorch
+    call that computes each P1 mode where there is one (noop: a repeat of
+    an arange; dma, halo0: a slice and a cast; contig, bspec: a view, a
+    transpose and a cast) is held equal to the plain version, then timed
+    beside it. Then both tools through their entry points at 16 MiB/ch
+    stereo, 8 staged tiles (268 MB, more than the 50 MB L2), with their
+    launch counts read around each run.
+11. timing: kernel and plain version per 16 MiB/ch stereo tile, CUDA
     events over 8 staged tiles, plain-kernel-kernel-plain, for K1a (÷8),
     ÷16, ÷64 and ÷128 at 24-bit TPDF and ÷64 at 20-bit TPDF (K1d); for
     the 48k family, one 16.08 MiB/ch tile (the engine's unit-aligned
@@ -67,10 +81,16 @@ one line per chain); any failed check exits non-zero:
     head, the tail alone, K2 against the plain finish (24-bit TPDF and
     f32 FPD), and the whole step against its plain path.
 
-Each phase line ends with the seconds since the start. Then the card's
-name and power limit, one JSON line on the kernels (launches from the e2e
-phase that drives each mode; max_abs_err in LSB of the output depth,
-absolute for f32), and the last line {"ok": true, "device": {...}}.
+Each phase line ends with the seconds since the start. At the end it
+checks that neither jax nor any module of the JAX package (dsd2dxd_tpu)
+was loaded. Then the card's name and power limit, one JSON line on the
+kernels (launches from the e2e phase or tool run that drives each;
+max_abs_err in LSB of the output depth, absolute for f32; bound_ms the
+larger of the bytes over 3.35 TB/s and the f32 operations over 67
+TFLOP/s, from this run's inputs; library_ms the one PyTorch call of the
+same function where there is one, P1's noop, dma, halo0, contig and bspec,
+else null), and the last line {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -93,6 +113,10 @@ SECONDS_CONFIG4 = 60  # DSD256: 169 MB of .dsf for a minute
 T_START = time.perf_counter()
 TOL_NONE_LSB = 5
 TOL_DITHER_LSB = 1
+# an H100 SXM's published peaks: HBM3 bytes/s, f32 FLOP/s outside the
+# tensor cores (the least time for a kernel's work: bound())
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def fail(msg: str) -> None:
@@ -197,6 +221,75 @@ def s24(raw, shift: int = 0):
     return np.where(v >= 1 << 23, v - (1 << 24), v) >> shift
 
 
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move `nbytes` (each input read once, each output written once) and
+    do `flops` f32 operations."""
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    tf = flops / PEAK_F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def p1_library_call(x, mode: str, g, rows: int, n_blocks: int):
+    """The one PyTorch call that computes P1's `mode` at the card's
+    geometry (k_sub = B, H <= B: block i of row c stores words
+    iB + H .. iB + H + B of its window, or of its slab row), or None where
+    there is none: noflush's output is whichever block wrote each element
+    last. Timed beside the kernel; the port never calls it."""
+    import torch
+
+    h, b = g.halo_words, g.block_words
+    if mode == "noop":
+        return torch.arange(g.k_sub, dtype=torch.float32,
+                            device=x.device).repeat(rows, n_blocks)
+    if mode == "dma":
+        return x[:, h:].float()
+    if mode == "halo0":
+        return x[:, :n_blocks * b].float()
+    if mode in ("contig", "bspec"):
+        return x.view(n_blocks, rows, g.win)[:, :, h:].transpose(
+            0, 1).float().reshape(rows, n_blocks * b)
+    return None
+
+
+def fir_flops(chain, frames: int, channels: int) -> int:
+    """f32 operations of a ÷R cascade for `frames` output frames per
+    channel: every stage's outputs per final frame times its taps, one
+    product and one sum each."""
+    r, cum, macs = 1, 1, 0
+    for s in chain:
+        r *= s.M
+    for s in chain:
+        cum *= s.M
+        macs += s.n_taps * (r // cum)
+    return 2 * macs * frames * channels
+
+
+def ptxas_summary(log: str) -> str:
+    """'kernel<template ints>: N regs, S spill' for every entry ptxas
+    compiled, from nvcc's -Xptxas -v output."""
+    import re
+
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(_Z(\d+)\w+)'", ln)
+        if m:
+            mangled, n = m.group(1), int(m.group(2))
+            base = mangled[2 + len(m.group(2)):2 + len(m.group(2)) + n]
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            name = f"{base}<{','.join(args)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            spill = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} regs, {spill} spill")
+            name = None
+    return "; ".join(out)
+
+
 def main() -> int:
     import torch
 
@@ -234,12 +327,11 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.load()
     build_s = time.perf_counter() - t0
-    ptxas = sorted({ln.strip() for ln in kernels.BUILD_LOG.splitlines()
-                    if "registers" in ln or "spill" in ln})
     phase("build", f"{build_s:.1f} s for {', '.join(kernels.SOURCES)} "
           f"(one nvcc each, in parallel; sm_90a; fused_decim: 11 epilogue "
-          f"instantiations + the K1e planar head, finish: 11); ptxas: "
-          f"{' | '.join(ptxas) or 'cached'}")
+          f"instantiations + the K1e planar head, finish: 11, probes: 6 P1 "
+          f"modes + 7 P2 rungs); ptxas: "
+          f"{ptxas_summary(kernels.BUILD_LOG) or 'cached'}")
 
     def decode(wire, bits):
         """Little-endian wire bytes on the card -> int64 samples at the
@@ -338,8 +430,7 @@ def main() -> int:
                 check(lo < rms < hi, f"{name} {tag}: error RMS {rms}")
             check(abs(mean) < 0.01, f"{name} {tag}: error mean {mean}")
             nz = s["noise"]
-            check(not torch.equal(nz[0], nz[1])
-                  and not torch.equal(nz[1], nz[2]),
+            check(all(not torch.equal(a, b) for a, b in zip(nz, nz[1:])),
                   f"{name} {tag}: tiles share noise")
             text += f" rms {rms:.4f} mean {mean:+.5f}"
         return text
@@ -744,7 +835,202 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 10. timing at bench.py's tile -------------------------------------------
+    # 10. probes: P1 (dmabench) and P2 (floorstrip) ---------------------------
+    from dsd2dxd_tpu_torch.tools import dmabench, floorstrip
+
+    def ev_ms(fn, n) -> float:
+        """Mean ms of fn(i), i < n, between two CUDA events (warmed)."""
+        fn(0)
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for i in range(n):
+            fn(i)
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) / n
+
+    tile16 = 16 * 1024 * 1024
+    blocks = dmabench.k1_blocks()
+    p1_err = {m: 0.0 for m in dmabench.KERNEL_MODES}
+    for bb, hb in blocks:
+        g = dmabench.geometry(bb, hb)
+        n = tile16 // bb
+        for _t in range(2):
+            x = torch.from_numpy(rng.integers(
+                0, 2 ** 32, (2, g.halo_words + n * g.block_words),
+                dtype=np.uint32).view(np.int32)).to(dev)
+            xr = dmabench.relayout(x, g, n)
+            for mode in dmabench.KERNEL_MODES:
+                src = xr if mode in ("contig", "bspec") else x
+                k = dmabench.dma_probe_cuda(src, mode, g, 2, n)
+                r = dmabench.dma_probe_reference(src, mode, g, 2, n)
+                torch.cuda.synchronize()
+                if mode == "noflush":
+                    ok = bool((k.unsqueeze(1) == r).any(dim=1).all())
+                    err = 0.0 if ok else float("inf")
+                else:
+                    ok = k.shape == r.shape and torch.equal(k, r)
+                    err = (float((k - r).abs().max())
+                           if k.shape == r.shape else float("inf"))
+                check(ok, f"P1 {mode} at block {bb} B: kernel differs from "
+                      f"its plain version ({err})")
+                p1_err[mode] = max(p1_err[mode], err)
+                lib = p1_library_call(src, mode, g, 2, n)
+                check(lib is None or torch.equal(lib, r),
+                      f"P1 {mode} at block {bb} B: the library call differs "
+                      f"from the plain version")
+            del x, xr, k, r, lib
+    phase("probes", f"P1 vs plain: {len(dmabench.KERNEL_MODES)} modes x "
+          f"K1's blocks {blocks} (B/ch, halo B), 2 tiles of 16 MiB/ch "
+          f"stereo each: exact (noflush: every element of the shared block "
+          f"is some block's); the library calls of noop, dma, halo0, "
+          f"contig and bspec equal the plain version")
+
+    chain_p, cfg_p, bo_p = floorstrip.probe_config(16)
+    taps_p = [torch.tensor(np.asarray(s.taps, dtype=np.float32), device=dev)
+              for s in chain_p]
+    flat_p = torch.cat(taps_p)
+    halo_p = fused.init_fused_halo(chain_p, 2, dev)
+    p2_err = {r: 0.0 for r in floorstrip.KERNEL_RUNGS}
+    q_errs, xs_p = [], []
+    full_p = floorstrip.make_probe_step(chain_p, cfg_p, "full", dev, bo_p)
+    full_st = new_stats()
+    for t in range(2):
+        x = torch.from_numpy(rng.integers(0, 256, (2, cfg_p.tile_bytes),
+                                          dtype=np.uint8)).to(dev)
+        xs_p.append(x)
+        key = philox.tile_key(14, t)
+        y = None
+        for rung in floorstrip.KERNEL_RUNGS:
+            ko, kp = floorstrip.probe_step_cuda(x, halo_p, flat_p, chain_p,
+                                                cfg_p, rung, bo_p, key)
+            ro, rp = floorstrip.probe_step_reference(x, halo_p, taps_p,
+                                                     chain_p, cfg_p, rung,
+                                                     bo_p, key)
+            torch.cuda.synchronize()
+            d = (ko.double() - ro.double()).abs()
+            err = float(d.max())
+            p2_err[rung] = max(p2_err[rung], err)
+            if rung == "cas0":
+                y = ro
+            if rung == "quant":
+                same = float((d == 0).double().mean())
+                check(err <= TOL_DITHER_LSB and same >= 0.999,
+                      f"P2 quant: {err} LSB, {same:.5f} identical")
+                f = y.double() * 2.0 ** 23
+                e = ko.double() - f
+                q_errs.append(e[f.abs() < 2 ** 23 - 4])
+            else:
+                check(err == 0.0, f"P2 {rung}: kernel differs from its "
+                      f"plain version by {err}")
+            if kp is not None:
+                check(float(kp) == float(rp), f"P2 {rung}: peak {float(kp)} "
+                      f"vs {float(rp)}")
+            del ko, ro, d
+        wk, pk, hk = full_p(x, halo_p, key)
+        wr, pr, _hr = fused.fused_decim_reference(x, halo_p, key, taps_p,
+                                                  chain_p, cfg_p)
+        torch.cuda.synchronize()
+        check(torch.equal(hk, x[:, x.shape[1] - halo_p.shape[1]:]),
+              "P2 full: new halo differs")
+        tile_stats(full_st, "P2 full", wk, pk, wr, pr, y.T.reshape(-1), 24,
+                   T)
+        del wk, wr
+        halo_p = x[:, x.shape[1] - halo_p.shape[1]:].contiguous()
+    full_text = verdict("P2 full", 24, T, full_st)
+    e = torch.cat(q_errs)
+    q_rms, q_mean = float(e.pow(2).mean().sqrt()), float(e.mean())
+    check(0.45 < q_rms < 0.55 and abs(q_mean) < 0.01,
+          f"P2 quant TPDF error RMS {q_rms}, mean {q_mean}")
+    del e, q_errs, y
+    phase("probes", f"P2 vs plain on synth_chain(0.0) (÷64, block_out "
+          f"{bo_p}), 2 tiles of {cfg_p.tile_bytes} B/ch stereo: dma, unpack, "
+          f"cas0a, cas0 bit-equal (peaks too); quant 24-bit TPDF max "
+          f"{p2_err['quant']:g} LSB, error RMS {q_rms:.4f} mean "
+          f"{q_mean:+.5f}; full (K1 at block_out {bo_p}) vs "
+          f"fused_decim_reference {full_text}")
+
+    # the plain versions' times, per 16 MiB/ch stereo tile
+    g2048 = dmabench.geometry(2048, dict(blocks)[2048])
+    n2048 = tile16 // 2048
+    xs1 = [torch.from_numpy(rng.integers(
+        0, 2 ** 32, (2, g2048.halo_words + n2048 * g2048.block_words),
+        dtype=np.uint32).view(np.int32)).to(dev) for _ in range(2)]
+    xr1 = [dmabench.relayout(x, g2048, n2048) for x in xs1]
+    p1_plain = {m: ev_ms(lambda i, m=m: dmabench.dma_probe_reference(
+        xr1[i] if m in ("contig", "bspec") else xs1[i], m, g2048, 2, n2048),
+        2) for m in dmabench.KERNEL_MODES}
+    p1_lib = {m: ev_ms(lambda i, m=m: p1_library_call(
+        xr1[i] if m in ("contig", "bspec") else xs1[i], m, g2048, 2, n2048),
+        2) for m in ("noop", "dma", "halo0", "contig", "bspec")}
+    del xs1, xr1
+    p2_plain = {r: ev_ms(lambda i, r=r: floorstrip.probe_step_reference(
+        xs_p[i], halo_p, taps_p, chain_p, cfg_p, r, bo_p, 7), 2)
+        for r in floorstrip.KERNEL_RUNGS}
+    del xs_p
+    torch.cuda.empty_cache()
+
+    # both tools through their entry points, the launch counts around each
+    dmabench.reset_launch_counts()
+    fused.reset_launch_counts()
+    p1 = dmabench.main(["--tile-mib", "16", "--reps", "8"])
+    p1_launches = dict(dmabench.LAUNCHES)
+    check(all(p1_launches[m] > 0 for m in dmabench.KERNEL_MODES)
+          and fused.KERNEL_LAUNCHES == 0,
+          f"P1 modes not launched by dmabench: {p1_launches}")
+    floorstrip.reset_launch_counts()
+    fused.reset_launch_counts()
+    p2 = floorstrip.main(["--tile-mib", "16", "--reps", "8"])
+    p2_launches = dict(floorstrip.LAUNCHES)
+    p2_full = fused.KERNEL_LAUNCHES
+    check(all(p2_launches[r] > 0 for r in floorstrip.KERNEL_RUNGS)
+          and p2_full > 0,
+          f"P2 rungs not launched by floorstrip: {p2_launches}, full "
+          f"{p2_full}")
+    torch.cuda.empty_cache()
+    p1_ms = {m: round(v, 4) for m, v in p1_plain.items()}
+    p2_ms = {r: round(v, 4) for r, v in p2_plain.items()}
+    phase("probes", f"timed through the entry points: dmabench launches "
+          f"{p1_launches}; floorstrip launches {p2_launches} + {p2_full} K1 "
+          f"(full); plain ms per 16 MiB/ch stereo tile: P1 at block 2048 B "
+          f"{p1_ms}, P2 {p2_ms}; P1's library calls at block 2048 B "
+          f"{ {m: round(v, 4) for m, v in p1_lib.items()} }; card [{label}]")
+
+    probe_rows = []
+    g = p1[2048]["geometry"]
+    for m in dmabench.KERNEL_MODES:
+        b_ms, b_by = bound(
+            dmabench.bound_bytes(m, g, 2, p1[2048]["n_blocks"]), 0)
+        probe_rows.append({
+            "name": f"P1 dma_probe ({m}; block 2048 B/ch, halo "
+                    f"{g.halo_words * 4} B)",
+            "route": "cuda", "source": "dsd2dxd_tpu_torch/csrc/probes.cu",
+            "replaces": "tools/dmabench.py:96 (_probe, pallas_call :181)",
+            "launches": p1_launches[m], "max_abs_err": p1_err[m],
+            "ms": p1[2048]["med_ms"][m], "plain_ms": p1_plain[m],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": p1_lib.get(m)})
+    t_out = p2["tile"] * 8 // fused.decimation(chain_p)
+    h_p = fused.chain_halo_bytes(chain_p)
+    for r in floorstrip.KERNEL_RUNGS:
+        nbytes = 2 * (p2["tile"] + h_p) + 2 * t_out * 4
+        flops = {"dma": 0, "unpack": 2 * t_out * 64,
+                 "quant": fir_flops(chain_p, t_out, 2) + 4 * 2 * t_out}.get(
+            r, fir_flops(chain_p, t_out, 2))
+        b_ms, b_by = bound(nbytes, flops)
+        probe_rows.append({
+            "name": f"P2 probe_step ({r}; synth_chain(0.0), block_out "
+                    f"{p2['block_out']})",
+            "route": "cuda", "source": "dsd2dxd_tpu_torch/csrc/probes.cu",
+            "replaces": "tools/floorstrip.py:46 (_probe_step, "
+                        "pallas_call :226)",
+            "launches": p2_launches[r], "max_abs_err": p2_err[r],
+            "ms": p2["med_ms"][r], "plain_ms": p2_plain[r],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+    # 11. timing at bench.py's tile -------------------------------------------
     tile = 16 * 1024 * 1024
     xs = [torch.from_numpy(rng.integers(0, 256, (2, tile), dtype=np.uint8)
                            ).to(dev) for _ in range(8)]
@@ -762,7 +1048,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return ev0.elapsed_time(ev1) / len(xs)
 
-    timed = {}
+    timed, bounds = {}, {}
     for mode, name, key, bits in [
             ("K1a", "÷8 E DSD64->352.8k 24-bit", (E, DsdRate.DSD64, 352800), 24),
             ("K1b", "÷16 E DSD64->176.4k 24-bit", (E, DsdRate.DSD64, 176400), 24),
@@ -786,6 +1072,11 @@ def main() -> int:
         k_ms = sum(runs["kernel"]) / 2
         p_ms = sum(runs["plain"]) / 2
         timed[mode] = (k_ms, p_ms)
+        frames = tile * 8 // fused.decimation(chain)
+        bounds[mode] = bound(
+            2 * (tile + fused.chain_halo_bytes(chain))
+            + 2 * frames * (2 if bits == 16 else 3),
+            fir_flops(chain, frames, 2) + 4 * 2 * frames)
         audio = tile * 8 / key[1].hz
         phase("timing", f"{name} TPDF, 16 MiB/ch stereo tile ({audio:.2f} s "
               f"audio): kernel {k_ms:.3f} ms ({audio / k_ms * 1e3:.0f} "
@@ -796,19 +1087,6 @@ def main() -> int:
     del xs
 
     # the 48k family: K1e, the tail and K2 alone, and the whole step
-    def ev_ms(fn, n) -> float:
-        """Mean ms of fn(i), i < n, between two CUDA events (warmed)."""
-        fn(0)
-        torch.cuda.synchronize()
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        for i in range(n):
-            fn(i)
-        ev1.record()
-        torch.cuda.synchronize()
-        return ev0.elapsed_time(ev1) / n
-
     def alternate(plain_fn, kernel_fn, n):
         """(kernel ms, plain ms, runs): plain, kernel, kernel, plain."""
         runs = {"plain": [], "kernel": []}
@@ -861,11 +1139,16 @@ def main() -> int:
 
         step_k, step_p, step_runs = alternate(
             plain_step, lambda i: step(xs[i], (halo, hist), keys[i]), n)
+        audio = tile * 8 / key[1].hz
+        n_base = tile * 8 // rp.r_head
+        n_out = n_base * 160 // 147
         if key[1] is DsdRate.DSD64:
             timed["K1e"] = (head_k, head_p)
             timed["K2"] = fin[24][:2]
-        audio = tile * 8 / key[1].hz
-        n_out = tile * 8 // rp.r_head * 160 // 147
+            bounds["K1e"] = bound(
+                2 * (tile + fused.chain_halo_bytes(head)) + 2 * n_base * 4,
+                fir_flops(head, n_base, 2))
+            bounds["K2"] = bound(2 * n_out * (4 + 3), 5 * 2 * n_out)
         phase("timing", f"48k {name}, {tile} B/ch stereo tile ({audio:.2f} s "
               f"audio, ÷{rp.r_head} head, {n_out} final frames/ch): K1e "
               f"{head_k:.3f} ms (runs {head_runs['kernel']}) vs plain head "
@@ -880,6 +1163,8 @@ def main() -> int:
         del xs, ys, zs
 
     check("jax" not in sys.modules, "jax was loaded")
+    jax_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "dsd2dxd_tpu")
+    check(not jax_pkg, f"modules of the JAX package were loaded: {jax_pkg}")
     check(all(launches[m] > 0 for m in ("K1a", "K1b", "K1c", "K1d", "K1e",
                                         "K2")),
           f"a kernel mode was not launched on its path: {launches}")
@@ -903,8 +1188,11 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src_file, "replaces": rep,
         "launches": launches[m], "max_abs_err": max_err[m],
-        "ms": timed[m][0], "plain_ms": timed[m][1]}
-        for m, name, src_file, rep in rows]}))
+        "ms": timed[m][0], "plain_ms": timed[m][1],
+        "bound_ms": bounds[m][0], "bound_by": bounds[m][1],
+        # no one PyTorch call unpacks, cascades, dithers and packs
+        "library_ms": None}
+        for m, name, src_file, rep in rows] + probe_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,13 +5,14 @@ The JAX package ``dsd2dxd_tpu`` stays the reference. This package runs its
 88.2 kHz) and its 48k family (a ÷2^k head and the ×160/147 stage, DSD64/128/
 256 -> 96/192/384 kHz), at 16/20/24 bit and 32-bit float, on an NVIDIA card:
 host code in PyTorch, the fused decimation kernel and the finish kernel
-written by hand in CUDA (``csrc/fused_decim.cu``, ``csrc/finish.cu``). It
-reuses the JAX package's host modules
-(formats, containers, filters, native, CLI parser) by import; none of them
-loads jax, and neither does this package.
+written by hand in CUDA (``csrc/fused_decim.cu``, ``csrc/finish.cu``;
+the floor probes of ``tools/`` in ``csrc/probes.cu``). Its host layers
+(``formats/``, ``containers/``, ``filters/`` with the designed tables,
+``utils/``, the CLI parser and progress bars) are its own copies of the
+JAX package's: it imports nothing of ``dsd2dxd_tpu`` and never loads jax.
 """
 
-from dsd2dxd_tpu.formats.dsd_types import (
+from dsd2dxd_tpu_torch.formats.dsd_types import (
     ONE_HUNDRED_PERCENT,
     DitherType,
     DsdFileFormat,

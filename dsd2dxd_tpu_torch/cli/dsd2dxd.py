@@ -1,8 +1,9 @@
 """``dsd2dxd-torch``: the transcoder CLI on one CUDA device.
 
-Same flags as ``dsd2dxd_tpu/cli/dsd2dxd.py`` (whose ``build_parser``,
-``expand_inputs``, ``parse_enums`` and ``copy_artwork`` it reuses; none
-of them loads jax), driving the port's ``Converter``:
+Same flags as ``dsd2dxd_tpu/cli/dsd2dxd.py``, whose ``build_parser``,
+``expand_inputs``, ``parse_enums`` and ``worker_count`` are copied here
+(the JAX CLI's device and platform switches are not), driving the
+port's ``Converter``:
 
     python -m dsd2dxd_tpu_torch.cli.dsd2dxd -o w -p OUT track.dsf
 
@@ -12,24 +13,133 @@ that names the ROADMAP item bringing them.
 
 from __future__ import annotations
 
+import argparse
+import os
 import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from dsd2dxd_tpu.cli.dsd2dxd import (
-    build_parser,
-    expand_inputs,
-    parse_enums,
-    worker_count,
+from dsd2dxd_tpu_torch.cli.progress import MultiProgress, ProgressAwareHandler
+from dsd2dxd_tpu_torch.formats.discover import (
+    compute_base_dir,
+    copy_artwork,
+    find_dsd_files,
 )
-from dsd2dxd_tpu.cli.progress import MultiProgress, ProgressAwareHandler
-from dsd2dxd_tpu.formats.discover import copy_artwork
-from dsd2dxd_tpu.formats.dsd_types import DsdFileFormat, OutputType
-from dsd2dxd_tpu.utils.errors import Dsd2DxdError
-from dsd2dxd_tpu.utils.logging import init_logging
+from dsd2dxd_tpu_torch.formats.dsd_types import (
+    DitherType,
+    DsdFileFormat,
+    DsdRate,
+    Endianness,
+    FilterType,
+    FmtType,
+    OutputType,
+)
 from dsd2dxd_tpu_torch.pipeline.engine import Converter
+from dsd2dxd_tpu_torch.utils.errors import Dsd2DxdError
+from dsd2dxd_tpu_torch.utils.logging import init_logging
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="dsd2dxd",
+        description="Convert DSD (.dsf/.dff/raw) to PCM/DXD "
+                    "(WAV/AIFF/AIFC/FLAC/stdout), on an NVIDIA card.",
+    )
+    from dsd2dxd_tpu_torch import __version__
+
+    p.add_argument("inputs", nargs="*", metavar="infile/folder(s)|-",
+                   help="input files/folders; '-' or none reads stdin")
+    # clap derives --version from the crate version (reference
+    # src/main.rs:41 #[command(version)])
+    p.add_argument("-V", "--version", action="version",
+                   version=f"%(prog)s {__version__}")
+    p.add_argument("-p", "--path", default=None, metavar="DIR",
+                   help="output directory (must exist; subdirectories are "
+                        "created; artwork is copied)")
+    p.add_argument("-c", "--channels", type=int, default=2,
+                   help="channel count for raw input (default 2)")
+    p.add_argument("-f", "--fmt", default="I", metavar="I|P",
+                   help="raw layout: interleaved or planar (default I)")
+    p.add_argument("-b", "--bitdepth", type=int, default=24,
+                   choices=(16, 20, 24, 32),
+                   help="output bit depth; 32 is float (default 24)")
+    p.add_argument("-t", "--filttype", default="E", metavar="E|X|D|C",
+                   help="filter bank (default E; X/D: DSD64 only, "
+                        "C: DSD128 only)")
+    p.add_argument("-e", "--endianness", default="M", metavar="M|L",
+                   help="DSD bit order for raw input (default M)")
+    p.add_argument("-s", "--bs", type=int, default=4096,
+                   help="DSD block size bytes/channel for raw input "
+                        "(default 4096)")
+    p.add_argument("-d", "--dither", default=None, metavar="T|R|F|N|X",
+                   help="dither type (default F for 32-bit else T)")
+    p.add_argument("-r", "--rate", type=int, default=352800,
+                   help="output sample rate Hz (default 352800)")
+    p.add_argument("-i", "--inrate", type=int, default=1, choices=(1, 2, 4, 8),
+                   help="input DSD rate: 1=DSD64 2=DSD128 4=DSD256 8=DSD512")
+    p.add_argument("-o", "--output", default="S", metavar="S|A|C|W|F",
+                   help="output: Stdout/Aiff/aifC/Wav/Flac (default S)")
+    p.add_argument("-l", "--level", type=float, default=0.0,
+                   help="gain adjust in dB (use --level=-3 for negatives)")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="trace-level logging")
+    p.add_argument("-q", "--quiet", action="store_true",
+                   help="silence all logging")
+    p.add_argument("-a", "--append", action="store_true",
+                   help="append _<RATE>K to filenames and ' [RATE]' to the "
+                        "album tag")
+    p.add_argument("-R", "--recurse", action="store_true",
+                   help="recurse directories for .dsf/.dff/.dsd")
+    return p
+
+
+def _looks_like_glob(s: str) -> bool:
+    return any(ch in s for ch in "*?[")
+
+
+def expand_inputs(raw_inputs: list[str], recurse: bool, log):
+    """Reference input pipeline (src/main.rs:216-277): sort+dedup, take
+    stdin out, warn+skip unexpanded globs, canonicalize, compute base_dir,
+    expand directories."""
+    inputs = sorted(dict.fromkeys(raw_inputs))
+    use_stdin = not inputs or "-" in inputs
+    inputs = [s for s in inputs if s != "-"]
+    paths = []
+    for s in inputs:
+        pth = Path(s)
+        if not pth.exists():
+            if _looks_like_glob(s):
+                log.warning(f"Skipping unexpanded glob pattern: {s}")
+                continue
+            # the reference's canonicalize()? aborts the whole run on a
+            # nonexistent path (src/main.rs:256-260)
+            raise Dsd2DxdError(f"Input does not exist: {s}")
+        paths.append(pth.resolve())
+    base_dir = compute_base_dir(paths) if paths else Path.cwd()
+    files = find_dsd_files(paths, recurse) if paths else []
+    return use_stdin, files, base_dir
+
+
+def parse_enums(args) -> dict:
+    dither_char = args.dither
+    if dither_char is None:
+        dither_char = "F" if args.bitdepth == 32 else "T"
+    return dict(
+        dither=DitherType.from_char(dither_char),      # strict
+        fmt=FmtType.from_char(args.fmt),               # strict
+        endian=Endianness.from_char(args.endianness),  # lenient
+        filt=FilterType.from_char(args.filttype),      # lenient
+        output=OutputType.from_char(args.output),      # lenient
+        input_rate=DsdRate.from_multiplier(args.inrate),
+    )
+
+
+def worker_count() -> int:
+    """Host-side worker threads feeding the device queue (the reference
+    uses available_parallelism()/2 Rayon workers — src/main.rs:148-149)."""
+    return max((os.cpu_count() or 2) // 2, 1)
 
 
 def convert_stdin(args, enums, base_dir: Path, device=None) -> None:

@@ -67,73 +67,14 @@
 //   bit pattern of the non-negative f32 (order-independent, deterministic).
 // - dither and the wire word: epilogue.cuh, shared with K2. FPD's ulp is
 //   f32(bits(y) & 0x7F800000) * 2^-23, as the TPU kernel takes it.
+// - the window load, the unpack, the stages and the last stage's loop and
+//   peak live in decim_body.cuh, which the floor probes of P2 (probes.cu)
+//   share; K1 adds only its epilogue.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "epilogue.cuh"
-
-#define MAX_STAGES 8
-#define MAX_LEVELS 8  // tree levels: taps per stage < 256
-
-struct DecimParams {
-  int n_stages;
-  int channels;
-  int tile_bytes;    // T: input bytes per channel
-  int tile_frames;   // T_out = T / frame_bytes: output frames per channel
-  int frame_bytes;   // input bytes per output frame (R / 8)
-  int n_valid;       // frames m >= n_valid leave the peak alone
-  int halo_bytes;    // H
-  int block_out;     // output frames per block
-  int byte_off;      // window byte of the block's first input byte, minus m0 * frame_bytes
-  int bit_off;       // first needed bit inside that byte
-  int n_load_bytes;  // bytes each block unpacks
-  int n_taps_total;
-  int buf_a;         // float offsets into dynamic shared memory
-  int buf_b;
-  int smem_bytes;
-  int n_taps[MAX_STAGES];
-  int decim[MAX_STAGES];
-  int tap_off[MAX_STAGES];
-  int out_len[MAX_STAGES];  // outputs per block of each stage
-  float gain;
-  int apply_gain;
-  int bit_depth;     // 16, 20, 24 (integer) or 32 (float)
-  int dither;        // DITHER_*
-  uint32_t key0;
-  uint32_t key1;
-  int big_endian;
-  int planar;        // K1e: planar f32 out[c * tile_frames + m], no peak
-};
-
-// sum_{k<n} h[k] * src[-k], summed pairwise in the order of the plain
-// version's tree_sum.
-__device__ __forceinline__ float fir_tree(const float* __restrict__ h,
-                                          const float* src, int n) {
-  float acc[MAX_LEVELS];
-  for (int k = 0; k < n; ++k) {
-    float v = __fmul_rn(h[k], src[-k]);
-#pragma unroll
-    for (int lv = 0; lv < MAX_LEVELS; ++lv) {
-      if ((k >> lv) & 1) {
-        v = __fadd_rn(acc[lv], v);
-      } else {
-        acc[lv] = v;
-        break;
-      }
-    }
-  }
-  float out = 0.0f;
-  bool have = false;
-#pragma unroll
-  for (int lv = 0; lv < MAX_LEVELS; ++lv) {
-    if ((n >> lv) & 1) {
-      out = have ? __fadd_rn(acc[lv], out) : acc[lv];
-      have = true;
-    }
-  }
-  return out;
-}
+#include "decim_body.cuh"
 
 template <int BITS, int DITHER, bool PLANAR>
 __global__ void __launch_bounds__(THREADS)
@@ -145,61 +86,23 @@ fused_decim_kernel(const uint8_t* __restrict__ halo,
   extern __shared__ float smem[];
   const int c = blockIdx.y;
   const long long m0 = (long long)blockIdx.x * p.block_out;
-  const long long H = p.halo_bytes;
-  const long long T = p.tile_bytes;
-  const int tid = threadIdx.x;
   float* h_s = smem;
   float* buf_a = smem + p.buf_a;
   float* buf_b = smem + p.buf_b;
 
-  for (int i = tid; i < p.n_taps_total; i += blockDim.x) h_s[i] = taps[i];
-  const long long wb0 = m0 * p.frame_bytes + p.byte_off;
-  for (int i = tid; i < p.n_load_bytes; i += blockDim.x) {
-    const long long wb = wb0 + i;  // window byte
-    uint32_t byte = 0x69u;         // DSD idle past the window
-    if (wb < H) {
-      byte = halo[c * H + wb];
-    } else if (wb - H < T) {
-      byte = x[c * T + (wb - H)];
-    }
-#pragma unroll
-    for (int b = 0; b < 8; ++b)
-      buf_a[8 * i + b] = ((byte >> (7 - b)) & 1u) ? 1.0f : -1.0f;
-  }
-  __syncthreads();
-
-  const float* in = buf_a + p.bit_off;
-  const int last = p.n_stages - 1;
-  for (int s = 0; s < last; ++s) {
-    float* dst = ((s + 1) & 1) ? buf_b : buf_a;
-    const float* h = h_s + p.tap_off[s];
-    const int n = p.n_taps[s];
-    const int m = p.decim[s];
-    const int len = p.out_len[s];
-    for (int j = tid; j < len; j += blockDim.x)
-      dst[j] = fir_tree(h, in + m * j + n - 1, n);
-    __syncthreads();
-    in = dst;
-  }
-
-  const float* h = h_s + p.tap_off[last];
-  const int n = p.n_taps[last];
-  const int md = p.decim[last];
-  float local_peak = 0.0f;
-  for (int j = tid; j < p.block_out; j += blockDim.x) {
-    const long long m = m0 + j;
-    if (m >= p.tile_frames) break;
-    float y = fir_tree(h, in + md * j + n - 1, n);
-    if (p.apply_gain) y = __fmul_rn(y, p.gain);
-    if constexpr (PLANAR) {
-      reinterpret_cast<float*>(out)[c * (long long)p.tile_frames + m] = y;
-    } else {
-      if (m < p.n_valid) local_peak = fmaxf(local_peak, fabsf(y));
-      const uint32_t w =
-          epilogue<BITS, DITHER>(y, (uint32_t)m, (uint32_t)c, p.key0, p.key1);
-      store_wire<BPS>(out + (m * p.channels + c) * BPS, w, p.big_endian);
-    }
-  }
+  load_window(halo, x, taps, h_s, p, c, m0,
+              [&](int i, uint32_t byte) { unpack_byte(buf_a, i, byte); });
+  const float* in = run_stages(h_s, buf_a, buf_b, p);
+  const float local_peak = last_stage<!PLANAR>(
+      h_s, in, p, m0, [&](long long m, float y) {
+        if constexpr (PLANAR) {
+          reinterpret_cast<float*>(out)[c * (long long)p.tile_frames + m] = y;
+        } else {
+          const uint32_t w = epilogue<BITS, DITHER>(y, (uint32_t)m,
+                                                    (uint32_t)c, p.key0, p.key1);
+          store_wire<BPS>(out + (m * p.channels + c) * BPS, w, p.big_endian);
+        }
+      });
   if constexpr (!PLANAR) block_peak(local_peak, peak);
 }
 

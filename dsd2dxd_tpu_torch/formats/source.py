@@ -1,0 +1,194 @@
+"""Unified blockwise DSD sources.
+
+Replaces the reference's ``dsd-reader`` crate (SURVEY.md §2.2): a common
+interface over .dsf (planar blocks), .dff (byte-interleaved) and raw
+streams, normalizing everything to **per-channel byte planes in MSB-first
+bit order** — the canonical layout the device kernels consume.
+
+The normalization (deinterleave + bit-order reversal) is host-side numpy:
+at DSD stream rates (0.7–5.6 MB/s per stream, SURVEY.md §6) this is
+memory-bound and negligible next to the device pipeline.
+"""
+
+from __future__ import annotations
+
+import io
+from dataclasses import dataclass
+from typing import BinaryIO, Optional
+
+import numpy as np
+
+from dsd2dxd_tpu_torch.formats.dsd_types import DsdRate, Endianness, FmtType
+
+# 256-entry bit-reversal table: LSB-first byte -> MSB-first byte.
+_BITREV = np.array(
+    [int(f"{b:08b}"[::-1], 2) for b in range(256)], dtype=np.uint8
+)
+
+
+def reverse_bits(data: np.ndarray) -> np.ndarray:
+    """Reverse the bit order within each byte (LSB-first <-> MSB-first)."""
+    return _BITREV[data]
+
+
+@dataclass
+class DsdStreamInfo:
+    """Stream parameters, either from container metadata or CLI flags.
+
+    Container metadata overrides CLI flags in the engine
+    (reference README.md:102-106).
+    """
+
+    channels: int
+    rate: DsdRate
+    fmt: FmtType
+    endianness: Endianness
+    block_size: int  # bytes per channel per block (planar); 1 for interleaved
+    # Total DSD samples (bits) per channel, None when unknown (stdin/raw).
+    sample_count: Optional[int] = None
+    id3: Optional[bytes] = None  # raw ID3v2 tag bytes if present
+
+    @property
+    def data_bytes_per_channel(self) -> Optional[int]:
+        if self.sample_count is None:
+            return None
+        return (self.sample_count + 7) // 8
+
+    @property
+    def duration_seconds(self) -> Optional[float]:
+        if self.sample_count is None:
+            return None
+        return self.sample_count / self.rate.hz
+
+
+class DsdSource:
+    """Blockwise reader producing canonical (channels, n_bytes) uint8 planes,
+    MSB-first bit order.
+
+    ``read(n_bytes_per_ch)`` returns an array with up to ``n_bytes_per_ch``
+    columns (less at EOF), or None at end of stream.
+    """
+
+    def __init__(self, stream: BinaryIO, info: DsdStreamInfo,
+                 data_length: Optional[int] = None):
+        """``data_length``: total DSD payload bytes available in ``stream``
+        (all channels combined), or None to read until EOF."""
+        self._stream = stream
+        self.info = info
+        self._remaining = data_length
+        # Per-channel bytes already handed out (for sample-count trimming).
+        self._out_bytes = 0
+        self._pending: Optional[np.ndarray] = None  # leftover planar block tail
+
+    # -- internal helpers ---------------------------------------------------
+
+    def _read_raw(self, n: int) -> bytes:
+        if self._remaining is not None:
+            n = min(n, self._remaining)
+            if n <= 0:
+                return b""
+        buf = self._stream.read(n)
+        if self._remaining is not None:
+            self._remaining -= len(buf)
+        return buf
+
+    def _normalize(self, planes: np.ndarray) -> np.ndarray:
+        if self.info.endianness is Endianness.LSB_FIRST:
+            planes = reverse_bits(planes)
+        return planes
+
+    # -- public -------------------------------------------------------------
+
+    def read(self, n_bytes_per_ch: int) -> Optional[np.ndarray]:
+        c = self.info.channels
+        limit = self.info.data_bytes_per_channel
+        if limit is not None and self._out_bytes >= limit:
+            return None
+        if limit is not None:
+            n_bytes_per_ch = min(n_bytes_per_ch, limit - self._out_bytes)
+
+        if self.info.fmt is FmtType.INTERLEAVED:
+            planes = self._read_interleaved(n_bytes_per_ch)
+        else:
+            planes = self._read_planar(n_bytes_per_ch)
+        if planes is None or planes.shape[1] == 0:
+            return None
+        self._out_bytes += planes.shape[1]
+        return self._normalize(planes)
+
+    def _read_interleaved(self, n_per_ch: int) -> Optional[np.ndarray]:
+        c = self.info.channels
+        raw = self._read_raw(n_per_ch * c)
+        if not raw:
+            return None
+        n = len(raw) // c * c  # drop trailing partial frame
+        if n == 0:
+            return None
+        arr = np.frombuffer(raw[:n], dtype=np.uint8)
+        return arr.reshape(-1, c).T.copy()
+
+    def _read_planar(self, n_per_ch: int) -> Optional[np.ndarray]:
+        c = self.info.channels
+        bs = self.info.block_size
+        chunks: list[np.ndarray] = []
+        got = 0
+        if self._pending is not None:
+            take = min(n_per_ch, self._pending.shape[1])
+            chunks.append(self._pending[:, :take])
+            self._pending = (
+                self._pending[:, take:] if take < self._pending.shape[1] else None
+            )
+            got += take
+        while got < n_per_ch:
+            raw = self._read_raw(bs * c)
+            if not raw:
+                break
+            if len(raw) < bs * c:
+                # Short/truncated final super-block: pad with the DSD
+                # idle pattern, NOT zeros — 0x00 bits are full-scale
+                # negative DC, and when a truncated file's header still
+                # declares the full sample count the pad falls INSIDE
+                # the valid range, so zero-pad fabricated a loud DC
+                # thump that inflated peaks (engine tile padding already
+                # used idle for the same reason).
+                raw = raw + b"\x69" * (bs * c - len(raw))
+            block = np.frombuffer(raw, dtype=np.uint8).reshape(c, bs)
+            take = min(bs, n_per_ch - got)
+            chunks.append(block[:, :take])
+            if take < bs:
+                self._pending = block[:, take:].copy()
+            got += take
+        if got == 0:
+            return None
+        return np.concatenate(chunks, axis=1)
+
+
+def raw_source(stream: BinaryIO, channels: int, rate: DsdRate, fmt: FmtType,
+               endianness: Endianness, block_size: int,
+               data_length: Optional[int] = None,
+               sample_count: Optional[int] = None) -> DsdSource:
+    """Source over a raw DSD bitstream (stdin or a .dsd file), with all
+    parameters supplied by the caller (reference: src/main.rs:325-343 —
+    ``Rdsd2Pcm::new`` takes explicit fmt/endian/rate/block-size/channels)."""
+    if fmt is FmtType.INTERLEAVED:
+        block_size = 1
+    info = DsdStreamInfo(
+        channels=channels, rate=rate, fmt=fmt, endianness=endianness,
+        block_size=block_size, sample_count=sample_count,
+    )
+    return DsdSource(stream, info, data_length=data_length)
+
+
+def open_raw_file(path, channels: int, rate: DsdRate, fmt: FmtType,
+                  endianness: Endianness, block_size: int) -> DsdSource:
+    import os
+
+    f = open(path, "rb")
+    size = os.fstat(f.fileno()).st_size
+    # For raw files we know the payload size; derive the per-channel sample
+    # count so progress is exact.
+    per_ch = size // channels
+    return raw_source(
+        f, channels, rate, fmt, endianness, block_size,
+        data_length=size, sample_count=per_ch * 8,
+    )

@@ -28,16 +28,16 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_decim.cu", "finish.cu")
+SOURCES = ("fused_decim.cu", "finish.cu", "probes.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-MAX_STAGES = 8  # must equal MAX_STAGES in csrc/fused_decim.cu
+MAX_STAGES = 8  # must equal MAX_STAGES in csrc/decim_body.cuh
 
 
 class DecimParams(ctypes.Structure):
-    """Mirror of ``struct DecimParams`` in csrc/fused_decim.cu (all fields
+    """Mirror of ``struct DecimParams`` in csrc/decim_body.cuh (all fields
     4 bytes wide, so natural alignment matches the C layout; the loader
     also compares sizeof on both sides)."""
 
@@ -87,6 +87,24 @@ class FinishParams(ctypes.Structure):
         ("key0", ctypes.c_uint32),
         ("key1", ctypes.c_uint32),
         ("big_endian", ctypes.c_int),
+    ]
+
+
+class DmaParams(ctypes.Structure):
+    """Mirror of ``struct DmaParams`` in csrc/probes.cu (one 8-byte field
+    first, then 4-byte ones: no padding on either side; the loader
+    compares sizeof)."""
+
+    _fields_ = [
+        ("in_row_words", ctypes.c_longlong),
+        ("rows", ctypes.c_int),
+        ("n_blocks", ctypes.c_int),
+        ("block_words", ctypes.c_int),
+        ("halo_words", ctypes.c_int),
+        ("k_sub", ctypes.c_int),
+        ("row_words", ctypes.c_int),
+        ("slab_words", ctypes.c_int),
+        ("smem_bytes", ctypes.c_int),
     ]
 
 
@@ -189,5 +207,29 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,  # cudaStream_t
         ]
         lib.dsd2dxd_finish.restype = ctypes.c_int
+        lib.dsd2dxd_dma_params_size.argtypes = []
+        lib.dsd2dxd_dma_params_size.restype = ctypes.c_int
+        if lib.dsd2dxd_dma_params_size() != ctypes.sizeof(DmaParams):
+            raise RuntimeError("DmaParams layout differs between "
+                               "kernels.py and csrc/probes.cu")
+        lib.dsd2dxd_dma_probe.argtypes = [
+            ctypes.c_void_p,  # x u32 words
+            ctypes.c_void_p,  # out f32
+            ctypes.c_int,     # mode
+            ctypes.POINTER(DmaParams),
+            ctypes.c_void_p,  # cudaStream_t
+        ]
+        lib.dsd2dxd_dma_probe.restype = ctypes.c_int
+        lib.dsd2dxd_probe_step.argtypes = [
+            ctypes.c_void_p,  # halo (C, H) u8
+            ctypes.c_void_p,  # x (C, T) u8
+            ctypes.c_void_p,  # taps f32, all stages
+            ctypes.c_void_p,  # out (C, T_out) f32 or i32
+            ctypes.c_void_p,  # peak f32[1], zeroed
+            ctypes.c_int,     # rung
+            ctypes.POINTER(DecimParams),
+            ctypes.c_void_p,  # cudaStream_t
+        ]
+        lib.dsd2dxd_probe_step.restype = ctypes.c_int
         _lib = lib
         return lib

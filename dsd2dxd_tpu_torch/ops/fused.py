@@ -50,10 +50,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from dsd2dxd_tpu.containers.pack import bytes_per_sample
-from dsd2dxd_tpu.filters.design import Stage
-from dsd2dxd_tpu.formats.dsd_types import DitherType
-from dsd2dxd_tpu.utils.errors import ConfigError
+from dsd2dxd_tpu_torch.containers.pack import bytes_per_sample
+from dsd2dxd_tpu_torch.filters.design import Stage
+from dsd2dxd_tpu_torch.formats.dsd_types import DitherType
+from dsd2dxd_tpu_torch.utils.errors import ConfigError
 from dsd2dxd_tpu_torch import kernels
 from dsd2dxd_tpu_torch.ops import philox
 from dsd2dxd_tpu_torch.ops.plan import (
@@ -243,15 +243,13 @@ def _wire_bytes(q: torch.Tensor, bps: int, big_endian: bool) -> torch.Tensor:
     return torch.stack(parts, dim=-1).to(torch.uint8).transpose(0, 1).reshape(-1)
 
 
-def decim_epilogue(y: torch.Tensor, tile_key: int, cfg: StepConfig,
-                   big_endian: bool = False, n_valid: Optional[int] = None):
-    """Plain version of the kernel's epilogue on the (C, T_out) f32
-    samples gain * y: returns (wire bytes (T_out*C*bps,) uint8, peak f32
-    0-d over the first n_valid frames; all frames for None)."""
+def epilogue_words(y: torch.Tensor, tile_key: int,
+                   cfg: StepConfig) -> torch.Tensor:
+    """The (C, T_out) int32 words of the epilogue on the f32 samples
+    gain * y: the quantized sample (20-bit shifted << 4) at 16/20/24
+    bit, the f32 bits (with FPD's ulp noise) at 32. Dither counter
+    (frame, channel) under `tile_key`."""
     c, t = y.shape
-    n = t if n_valid is None else max(0, min(int(n_valid), t))
-    peak = (y[:, :n].abs().amax() if n
-            else torch.zeros((), dtype=torch.float32, device=y.device))
     if cfg.dither is not DitherType.NONE:
         u0, u1 = philox.uniforms(t, c, tile_key, device=y.device)
     if cfg.bit_depth == 32:
@@ -259,18 +257,36 @@ def decim_epilogue(y: torch.Tensor, tile_key: int, cfg: StepConfig,
         if cfg.dither is DitherType.FPD:
             ulp = (y.view(torch.int32) & 0x7F800000).view(torch.float32)
             v = y + ((u0 + u1) - 1.0) * (ulp * 2.0 ** -23)
-        q = v.view(torch.int32)
-    else:
-        scale = float(1 << (cfg.bit_depth - 1))
-        v = y * scale
-        if cfg.dither is DitherType.TPDF:
-            v = v + ((u0 + u1) - 1.0)
-        elif cfg.dither is DitherType.RECTANGULAR:
-            v = v + (u0 - 0.5)
-        q = torch.clamp(torch.round(v), -scale, scale - 1.0).to(torch.int32)
-        if cfg.bit_depth == 20:
-            q = q * 16  # 20 significant bits at the top of 24
-    return _wire_bytes(q, bytes_per_sample(cfg.bit_depth), big_endian), peak
+        return v.view(torch.int32)
+    scale = float(1 << (cfg.bit_depth - 1))
+    v = y * scale
+    if cfg.dither is DitherType.TPDF:
+        v = v + ((u0 + u1) - 1.0)
+    elif cfg.dither is DitherType.RECTANGULAR:
+        v = v + (u0 - 0.5)
+    q = torch.clamp(torch.round(v), -scale, scale - 1.0).to(torch.int32)
+    if cfg.bit_depth == 20:
+        q = q * 16  # 20 significant bits at the top of 24
+    return q
+
+
+def decim_epilogue(y: torch.Tensor, tile_key: int, cfg: StepConfig,
+                   big_endian: bool = False, n_valid: Optional[int] = None):
+    """Plain version of the kernel's epilogue on the (C, T_out) f32
+    samples gain * y: returns (wire bytes (T_out*C*bps,) uint8, peak f32
+    0-d over the first n_valid frames; all frames for None)."""
+    q = epilogue_words(y, tile_key, cfg)
+    return (_wire_bytes(q, bytes_per_sample(cfg.bit_depth), big_endian),
+            masked_peak(y, n_valid))
+
+
+def masked_peak(y: torch.Tensor, n_valid: Optional[int] = None):
+    """max |y| over the first n_valid frames of (C, T) y (all for None;
+    0 for none), as a 0-d f32."""
+    t = y.shape[1]
+    n = t if n_valid is None else max(0, min(int(n_valid), t))
+    return (y[:, :n].abs().amax() if n
+            else torch.zeros((), dtype=torch.float32, device=y.device))
 
 
 def finish_reference(z: torch.Tensor, gain: float, tile_key: int,
@@ -349,9 +365,11 @@ def check_step_config(chain: Sequence[Stage], cfg: StepConfig) -> None:
 
 
 def _kernel_params(chain, cfg: StepConfig, halo_bytes: int, tile_key: int,
-                   big_endian: bool, n_valid: int,
-                   planar: bool = False) -> kernels.DecimParams:
-    lay = block_layout(chain, halo_bytes, block_out_for(chain))
+                   big_endian: bool, n_valid: int, planar: bool = False,
+                   block_out: Optional[int] = None) -> kernels.DecimParams:
+    """The kernel's DecimParams; `block_out` overrides block_out_for
+    (the floor probes sweep it)."""
+    lay = block_layout(chain, halo_bytes, block_out or block_out_for(chain))
     p = kernels.DecimParams()
     p.n_stages = len(chain)
     p.channels = cfg.channels
@@ -410,7 +428,8 @@ def _launch_decim(x_u8: torch.Tensor, halo: torch.Tensor,
 def fused_decim_cuda(x_u8: torch.Tensor, halo: torch.Tensor, tile_key: int,
                      taps_flat: torch.Tensor, chain: Sequence[Stage],
                      cfg: StepConfig, big_endian: bool = False,
-                     n_valid: Optional[int] = None):
+                     n_valid: Optional[int] = None,
+                     block_out: Optional[int] = None):
     """Launch the kernel on the current stream. Same contract as
     ``fused_decim_reference``; raises if the launch fails."""
     c, t = x_u8.shape
@@ -420,7 +439,7 @@ def fused_decim_cuda(x_u8: torch.Tensor, halo: torch.Tensor, tile_key: int,
                       dtype=torch.uint8, device=x_u8.device)
     peak = torch.zeros(1, dtype=torch.float32, device=x_u8.device)
     params = _kernel_params(chain, cfg, halo.shape[1], tile_key, big_endian,
-                            n)
+                            n, block_out=block_out)
     _launch_decim(x_u8, halo, taps_flat, out, peak, params,
                   kernel_modes(chain, cfg.bit_depth))
     new_halo = x_u8[:, t - halo.shape[1]:].clone()
@@ -480,9 +499,11 @@ def finish_cuda(z: torch.Tensor, gain: float, tile_key: int,
 
 
 def make_fused_step(chain: Sequence[Stage], cfg: StepConfig, device,
-                    big_endian: bool = False):
+                    big_endian: bool = False,
+                    block_out: Optional[int] = None):
     """The fused step for `chain` and `cfg`: 16/20/24-bit with
-    TPDF/RECT/NONE, or 32-bit float with NONE/FPD.
+    TPDF/RECT/NONE, or 32-bit float with NONE/FPD. `block_out` overrides
+    the kernel's output frames per block (``block_out_for``).
 
     step(x_u8 (C, tile) uint8, halo (C, halo_bytes) uint8, tile_key,
          n_valid=None) -> (wire bytes (T_out*C*bps,) uint8, peak f32 0-d,
@@ -517,7 +538,7 @@ def make_fused_step(chain: Sequence[Stage], cfg: StepConfig, device,
             raise ValueError(f"step built for {device}, got {x_u8.device}")
         if x_u8.is_cuda:
             return fused_decim_cuda(x_u8, halo, tile_key, taps_flat, chain,
-                                    cfg, big_endian, n_valid)
+                                    cfg, big_endian, n_valid, block_out)
         if x_u8.device.type == "cpu":
             return fused_decim_reference(x_u8, halo, tile_key, taps, chain,
                                          cfg, big_endian, n_valid)

@@ -8,7 +8,8 @@ module imports jax at load, so the port carries its own copy;
 two term by term.
 
 ``params_from_chain`` hands the filter taps to the port as f32 tensors
-(the same ``filters/design.get_chain`` tables the JAX package uses), and
+(the ``filters/design.get_chain`` tables, byte copies of the JAX
+package's), and
 ``state_from_jax`` takes a JAX fused state (a halo, or a 48k chain's halo
 and tail history) as the port's streaming state.
 """
@@ -23,9 +24,9 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
-# the chains are the JAX package's tables (cached .npz files), shared by
-# import; get_chain is re-exported for the port's callers
-from dsd2dxd_tpu.filters.design import Stage, get_chain  # noqa: F401
+# the chains are the port's copy of the JAX package's tables (the same
+# cached .npz files); get_chain is re-exported for the port's callers
+from dsd2dxd_tpu_torch.filters.design import Stage, get_chain  # noqa: F401
 
 
 @dataclass(frozen=True)

@@ -35,9 +35,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from dsd2dxd_tpu.filters.design import Stage
-from dsd2dxd_tpu.formats.dsd_types import DitherType
-from dsd2dxd_tpu.utils.errors import ConfigError
+from dsd2dxd_tpu_torch.filters.design import Stage
+from dsd2dxd_tpu_torch.formats.dsd_types import DitherType
+from dsd2dxd_tpu_torch.utils.errors import ConfigError
 from dsd2dxd_tpu_torch.ops import fused
 from dsd2dxd_tpu_torch.ops.plan import (
     build_plan,

@@ -23,8 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dsd2dxd_tpu.filters.design import Stage
-from dsd2dxd_tpu.formats.dsd_types import DitherType
+from dsd2dxd_tpu_torch.filters.design import Stage
+from dsd2dxd_tpu_torch.formats.dsd_types import DitherType
 
 
 @dataclass(frozen=True)

@@ -4,8 +4,10 @@ wire bytes out, for every pure ÷2^k chain (the 44.1k family) and every
 
 Counterpart of ``dsd2dxd_tpu/pipeline/engine.py`` for the ported slice
 (``_file_seed``, ``_tile_bytes_for``, ``_cached_step``, ``Converter.new`` /
-``from_container``, ``_run``, ``_drain``, ``do_conversion``), with the same
-API plus an explicit ``device``.
+``from_container``, ``_run``, ``_drain``, ``do_conversion``,
+``open_container``), with the same API plus an explicit ``device``. The
+readers, writers and filter tables are the port's own copies
+(``formats/``, ``containers/``, ``filters/``).
 
 Pipeline on a CUDA device, per tile t (ring of MAX_PENDING_DRAINS + 1
 slots): the host reads and bit-normalises the tile into a pinned buffer;
@@ -39,12 +41,13 @@ from typing import BinaryIO, Callable, Optional
 import numpy as np
 import torch
 
-from dsd2dxd_tpu.containers.pack import bytes_per_sample
-from dsd2dxd_tpu.filters.design import chain_ratio, get_chain
-from dsd2dxd_tpu.formats.discover import build_output_path
-from dsd2dxd_tpu.formats.dsd_types import (
+from dsd2dxd_tpu_torch.containers.pack import bytes_per_sample
+from dsd2dxd_tpu_torch.filters.design import chain_ratio, get_chain
+from dsd2dxd_tpu_torch.formats.discover import build_output_path
+from dsd2dxd_tpu_torch.formats.dsd_types import (
     ONE_HUNDRED_PERCENT,
     DitherType,
+    DsdFileFormat,
     DsdRate,
     Endianness,
     FilterType,
@@ -53,14 +56,13 @@ from dsd2dxd_tpu.formats.dsd_types import (
     ProgressUpdate,
     check_filter_choice,
 )
-from dsd2dxd_tpu.formats.source import DsdSource, open_raw_file, raw_source
-from dsd2dxd_tpu.pipeline.engine import open_container
-from dsd2dxd_tpu.utils.errors import CancelledError, ConfigError
+from dsd2dxd_tpu_torch.formats.source import DsdSource, open_raw_file, raw_source
 from dsd2dxd_tpu_torch.ops import fused, rational
 from dsd2dxd_tpu_torch.ops.philox import tile_key
 from dsd2dxd_tpu_torch.ops.plan import build_chain_plans, chain_tile_unit_bits
 from dsd2dxd_tpu_torch.ops.resample import StepConfig
 from dsd2dxd_tpu_torch.utils.device import resolve_device
+from dsd2dxd_tpu_torch.utils.errors import CancelledError, ConfigError
 
 __all__ = ["Converter", "open_container", "MAX_PENDING_DRAINS"]
 
@@ -139,6 +141,21 @@ def effective_dither(bit_depth: int, dither: DitherType) -> DitherType:
     allowed = ((DitherType.FPD,) if bit_depth == 32
                else (DitherType.TPDF, DitherType.RECTANGULAR))
     return dither if dither in allowed else DitherType.NONE
+
+
+def open_container(path: Path) -> DsdSource:
+    """Open a .dsf/.dff container as a normalized DsdSource."""
+    from dsd2dxd_tpu_torch.formats.dff import open_dff
+    from dsd2dxd_tpu_torch.formats.dsf import open_dsf
+
+    fmt = DsdFileFormat.from_path(path)
+    if fmt is DsdFileFormat.DSF:
+        src, _meta = open_dsf(path)
+        return src
+    if fmt is DsdFileFormat.DFF:
+        src, _meta = open_dff(path)
+        return src
+    raise ConfigError(f"Not a DSD container: {path}")
 
 
 class _Staging:
@@ -287,8 +304,8 @@ class Converter:
     # -- the conversion loop ------------------------------------------------
 
     def _make_writer(self, f: BinaryIO, id3: Optional[bytes]):
-        from dsd2dxd_tpu.containers.aiff import AiffWriter
-        from dsd2dxd_tpu.containers.wav import WavWriter
+        from dsd2dxd_tpu_torch.containers.aiff import AiffWriter
+        from dsd2dxd_tpu_torch.containers.wav import WavWriter
 
         ch = self.source.info.channels
         if self.output is OutputType.WAV:
@@ -304,7 +321,7 @@ class Converter:
              write: Callable, big_endian: bool) -> float:
         """The tile loop. `write` takes each tile's valid wire bytes.
         Returns the stream peak (linear, post-level)."""
-        from dsd2dxd_tpu.utils.logging import TRACE, get_logger
+        from dsd2dxd_tpu_torch.utils.logging import TRACE, get_logger
 
         t_start = time.perf_counter()
         info = self.source.info
@@ -419,7 +436,7 @@ class Converter:
         """Run the conversion (reference src/main.rs:345, 429)."""
         id3 = self.source.info.id3
         if id3 is not None and self.append_rate:
-            from dsd2dxd_tpu.formats.id3 import parse_id3
+            from dsd2dxd_tpu_torch.formats.id3 import parse_id3
 
             tag = parse_id3(id3)
             if tag is not None:

@@ -13,7 +13,7 @@ import sys
 
 import torch
 
-from dsd2dxd_tpu.utils.errors import ConfigError
+from dsd2dxd_tpu_torch.utils.errors import ConfigError
 
 
 def resolve_device(device=None) -> torch.device:

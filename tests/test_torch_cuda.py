@@ -1,6 +1,6 @@
 """Tests of the port that need an NVIDIA card (marker `cuda`); they skip
-where CUDA is not available. This file imports no jax, so on a machine
-without jax it runs on its own:
+where CUDA is not available. This file imports nothing of jax or of the
+JAX package, so on a machine without them it runs on its own:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 """
@@ -9,16 +9,17 @@ import numpy as np
 import pytest
 import torch
 
-from dsd2dxd_tpu.filters.design import get_chain
-from dsd2dxd_tpu.formats.dsd_types import (
+from dsd2dxd_tpu_torch import Converter
+from dsd2dxd_tpu_torch.filters.design import get_chain
+from dsd2dxd_tpu_torch.formats.dsd_types import (
     DitherType,
     DsdRate,
     FilterType,
     OutputType,
 )
-from dsd2dxd_tpu_torch import Converter
 from dsd2dxd_tpu_torch.ops import fused, philox, rational
 from dsd2dxd_tpu_torch.ops.resample import StepConfig
+from dsd2dxd_tpu_torch.tools import dmabench, floorstrip
 
 pytestmark = pytest.mark.cuda
 
@@ -178,13 +179,13 @@ def _engine_equal(cuda_device, tmp_path, monkeypatch, rate, output_rate,
     """The streamed CUDA pipeline (pinned buffers, copy and compute
     streams, drain thread) writes the same file as the CPU loop."""
     import dsd2dxd_tpu_torch.pipeline.engine as engine
-    from dsd2dxd_tpu.formats.dsf import write_dsf
-    from dsd2dxd_tpu.ops.dsm import synth_tone_dsd
+    from dsd2dxd_tpu_torch.formats.dsf import write_dsf
 
     monkeypatch.setattr(engine, "_DEFAULT_TILE_TARGET", 32 * 1024)
-    src = tmp_path / "tone.dsf"
-    write_dsf(src, synth_tone_dsd(1000.0, 0.5, rate.hz, channels=2),
-              rate.hz, lsb_first=True)
+    src = tmp_path / "noise.dsf"
+    planes = np.random.default_rng(34).integers(
+        0, 256, (2, rate.hz // 16), dtype=np.uint8)  # 0.5 s
+    write_dsf(src, planes, rate.hz, lsb_first=True)
     outs = {}
     for dev in ("cpu", cuda_device):
         d = tmp_path / str(dev).replace(":", "")
@@ -347,3 +348,66 @@ def test_engine_48k_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch,
         da = _decode(torch.frombuffer(bytearray(a[head:]), dtype=torch.uint8))
         db = _decode(torch.frombuffer(bytearray(b[head:]), dtype=torch.uint8))
         assert np.abs(da - db).max() <= 1
+
+
+# -- the floor probes: P1 (dmabench) and P2 (floorstrip) ---------------------
+
+@pytest.mark.parametrize("block,halo", dmabench.k1_blocks())
+def test_dma_probe_matches_plain_on_card(cuda_device, block, halo):
+    """Every P1 mode against its plain version, exact; noflush's shared
+    output block holds, element by element, some block's value (the
+    blocks run in no order); one launch each."""
+    g = dmabench.geometry(block, halo)
+    n = 37
+    x = torch.from_numpy(np.random.default_rng(35).integers(
+        0, 2 ** 32, (2, g.halo_words + n * g.block_words),
+        dtype=np.uint32).view(np.int32)).to(cuda_device)
+    xr = dmabench.relayout(x, g, n)
+    for mode in dmabench.KERNEL_MODES:
+        src = xr if mode in ("contig", "bspec") else x
+        before = dmabench.LAUNCHES[mode]
+        k = dmabench.dma_probe(src, mode, g, 2, n)
+        assert dmabench.LAUNCHES[mode] == before + 1
+        r = dmabench.dma_probe_reference(src, mode, g, 2, n)
+        torch.cuda.synchronize()
+        if mode == "noflush":
+            assert k.shape == (2, g.k_sub)
+            assert bool((k.unsqueeze(1) == r).any(dim=1).all())
+        else:
+            assert torch.equal(k, r), mode
+
+
+@pytest.mark.parametrize("block_out", [None, 100])
+def test_probe_step_matches_plain_on_card(cuda_device, block_out):
+    """Every P2 rung against its plain version on a ragged tile: dma,
+    unpack, cas0a and cas0 bit-equal (peaks too), quant at TPDF within 1
+    LSB and >= 99.9 % identical; one launch each."""
+    chain, cfg, bo = floorstrip.probe_config(0, block_out)
+    tile = cfg.tile_bytes * 7 // 2 // 8 * 8
+    cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=24,
+                     dither=DitherType.TPDF, level_db=0.0)
+    rng = np.random.default_rng(36)
+    x = torch.from_numpy(rng.integers(0, 256, (2, tile),
+                                      dtype=np.uint8)).to(cuda_device)
+    halo = torch.from_numpy(rng.integers(
+        0, 256, (2, fused.chain_halo_bytes(chain)),
+        dtype=np.uint8)).to(cuda_device)
+    taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32),
+                         device=cuda_device) for s in chain]
+    key = philox.tile_key(3, 1)
+    for rung in floorstrip.KERNEL_RUNGS:
+        before = floorstrip.LAUNCHES[rung]
+        ko, kp = floorstrip.make_probe_step(chain, cfg, rung, cuda_device,
+                                            bo)(x, halo, key, tile // 8 - 9)
+        assert floorstrip.LAUNCHES[rung] == before + 1
+        ro, rp = floorstrip.probe_step_reference(x, halo, taps, chain, cfg,
+                                                 rung, bo, key, tile // 8 - 9)
+        torch.cuda.synchronize()
+        if rung == "quant":
+            d = (ko.long() - ro.long()).abs()
+            assert int(d.max()) <= 1
+            assert float((d == 0).double().mean()) >= 0.999
+        else:
+            assert torch.equal(ko, ro), rung
+        if kp is not None:
+            assert float(kp) == float(rp)

@@ -2,6 +2,7 @@
 dsd2dxd_tpu_torch/cli) against the JAX engine, plus the configurations
 the port refuses."""
 
+import enum
 import io
 import sys
 import types
@@ -12,7 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from dsd2dxd_tpu.formats.dsd_types import (
+from dsd2dxd_tpu.formats import dsd_types as jtypes
+from dsd2dxd_tpu.pipeline import engine as jengine
+import dsd2dxd_tpu_torch.pipeline.engine as tengine
+from dsd2dxd_tpu_torch import Converter as TConverter
+from dsd2dxd_tpu_torch.cli.dsd2dxd import run as trun
+from dsd2dxd_tpu_torch.formats.dsd_types import (
     DitherType,
     DsdRate,
     Endianness,
@@ -20,14 +26,28 @@ from dsd2dxd_tpu.formats.dsd_types import (
     FmtType,
     OutputType,
 )
-from dsd2dxd_tpu.pipeline.engine import Converter as JConverter
-from dsd2dxd_tpu.utils.errors import ConfigError
-import dsd2dxd_tpu_torch.pipeline.engine as tengine
-from dsd2dxd_tpu_torch import Converter as TConverter
-from dsd2dxd_tpu_torch.cli.dsd2dxd import run as trun
 from dsd2dxd_tpu_torch.utils.device import resolve_device
+from dsd2dxd_tpu_torch.utils.errors import ConfigError
 
 HEAD_SKIP = 128  # zero-primed JAX phase path vs idle-primed port
+
+
+def _jax_enums(kw: dict) -> dict:
+    """The port's enums as the JAX package's members of the same name."""
+    return {k: getattr(jtypes, type(v).__name__)[v.name]
+            if isinstance(v, enum.Enum) else v for k, v in kw.items()}
+
+
+class JConverter:
+    """The JAX Converter, called with the port's enums (keywords only)."""
+
+    @staticmethod
+    def from_container(**kw):
+        return jengine.Converter.from_container(**_jax_enums(kw))
+
+    @staticmethod
+    def new(**kw):
+        return jengine.Converter.new(**_jax_enums(kw))
 
 
 @pytest.fixture
@@ -217,9 +237,7 @@ def _stdin(monkeypatch, data: bytes) -> None:
 def _raw_interleaved(dsf: Path) -> bytes:
     """The .dsf's stereo stream as raw interleaved MSB-first DSD (what
     BASELINE config 2 pipes in)."""
-    from dsd2dxd_tpu.pipeline.engine import open_container
-
-    src = open_container(dsf)
+    src = tengine.open_container(dsf)
     parts = []
     while (p := src.read(1 << 16)) is not None:
         parts.append(p)

@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from dsd2dxd_tpu.containers.pack import pack_int
-from dsd2dxd_tpu.filters.design import chain_ratio, get_chain
-from dsd2dxd_tpu.formats.dsd_types import DitherType, DsdRate, FilterType
+from dsd2dxd_tpu.filters.design import get_chain as jget_chain
+from dsd2dxd_tpu.formats import dsd_types as jtypes
 from dsd2dxd_tpu.ops import fused as jfused
 from dsd2dxd_tpu.ops.phase import (
     build_chain_plans,
@@ -25,12 +25,14 @@ from dsd2dxd_tpu.ops.phase import (
 from dsd2dxd_tpu.ops.resample import StepConfig as JStepConfig
 from dsd2dxd_tpu.ops.resample import quantize_int as jquantize_int
 from dsd2dxd_tpu.pipeline.transfer import interleave_planes_numpy
-from dsd2dxd_tpu.utils.errors import ConfigError
 from dsd2dxd_tpu_torch import kernels
+from dsd2dxd_tpu_torch.filters.design import chain_ratio, get_chain
+from dsd2dxd_tpu_torch.formats.dsd_types import DitherType, DsdRate, FilterType
 from dsd2dxd_tpu_torch.ops import fused as tfused
 from dsd2dxd_tpu_torch.ops import philox
 from dsd2dxd_tpu_torch.ops.plan import state_from_jax, tree_sum
 from dsd2dxd_tpu_torch.ops.resample import StepConfig
+from dsd2dxd_tpu_torch.utils.errors import ConfigError
 
 E64 = (FilterType.EQUIRIPPLE, DsdRate.DSD64, 352800)
 X64 = (FilterType.XLD, DsdRate.DSD64, 352800)
@@ -45,6 +47,13 @@ E256_88 = (FilterType.EQUIRIPPLE, DsdRate.DSD256, 88200)    # ÷128
 E512_352 = (FilterType.EQUIRIPPLE, DsdRate.DSD512, 352800)  # ÷64
 TILE = 16384 * 2   # two JAX grid blocks, as tests/test_fused.py
 LEVEL = -1.5
+
+
+def _jchain(key):
+    """The JAX package's chain for a port (filter, rate, out) key: the
+    JAX side of every comparison runs on its own tables and enums."""
+    return jget_chain(jtypes.FilterType[key[0].name],
+                      jtypes.DsdRate[key[1].name], key[2])
 
 
 def _all_decimation_chains():
@@ -107,12 +116,12 @@ def _decode(wire: torch.Tensor, bit_depth: int, big_endian=False):
 @pytest.mark.parametrize("key", [E64, X64, D64], ids=["E", "X", "D"])
 def test_plain_cascade_matches_jax_fused_float(key):
     """Both idle-primed: no head skip. Three tiles, state carried."""
-    chain = get_chain(*key)
+    chain, jchain = get_chain(*key), _jchain(key)
     jcfg = JStepConfig(channels=2, tile_bytes=TILE, bit_depth=32,
-                       dither=DitherType.NONE, level_db=LEVEL)
-    jstep, halo_bytes = jfused.make_fused_step(chain, jcfg, interpret=True)
+                       dither=jtypes.DitherType.NONE, level_db=LEVEL)
+    jstep, halo_bytes = jfused.make_fused_step(jchain, jcfg, interpret=True)
     assert halo_bytes == tfused.chain_halo_bytes(chain)
-    h_j = jnp.asarray(jfused.init_fused_halo(chain, 2))
+    h_j = jnp.asarray(jfused.init_fused_halo(jchain, 2))
     h_t = tfused.init_fused_halo(chain, 2)
     np.testing.assert_array_equal(h_t.numpy(), np.asarray(h_j))
     gain = tfused._gain32(_cfg())
@@ -129,15 +138,15 @@ def test_plain_cascade_matches_jax_fused_float(key):
 def test_fused_24bit_matches_jax_planes_and_state_handover():
     """24-bit NONE against JAX emit="planes" + the host interleaver, both
     byte orders; then JAX tile 0 -> state_from_jax -> port tile 1."""
-    chain = get_chain(*E64)
+    chain, jchain = get_chain(*E64), _jchain(E64)
     jcfg = JStepConfig(channels=2, tile_bytes=TILE, bit_depth=24,
-                       dither=DitherType.NONE, level_db=LEVEL)
+                       dither=jtypes.DitherType.NONE, level_db=LEVEL)
     jstep, halo_bytes, layout = jfused.make_fused_step(
-        chain, jcfg, interpret=True, emit="planes")
+        jchain, jcfg, interpret=True, emit="planes")
     steps = {be: tfused.make_fused_step(chain, _cfg(), "cpu", big_endian=be)
              for be in (False, True)}
     x0, x1 = _tiles(6, 2)
-    h_j = jnp.asarray(jfused.init_fused_halo(chain, 2))
+    h_j = jnp.asarray(jfused.init_fused_halo(jchain, 2))
     planes, pj, h_j = jstep(x0, h_j, 0)
     for be, step in steps.items():
         wire, pt, h_t = step(torch.from_numpy(x0),
@@ -392,8 +401,9 @@ def test_halo_equals_jax(key):
     for all 20 chains (so a JAX state hands over)."""
     chain = get_chain(*key)
     assert tfused.decimation(chain) is not None
-    assert tfused.chain_halo_bytes(chain) == jfused.chain_halo_bytes(chain)
-    init = state_from_jax(jfused.init_fused_halo(chain, 2))
+    jchain = _jchain(key)
+    assert tfused.chain_halo_bytes(chain) == jfused.chain_halo_bytes(jchain)
+    init = state_from_jax(jfused.init_fused_halo(jchain, 2))
     assert torch.equal(init, tfused.init_fused_halo(chain, 2))
 
 
@@ -405,9 +415,10 @@ def test_plain_cascade_matches_jax_phase_path(key):
     zero-primed histories), peaks within 1e-4."""
     chain = get_chain(*key)
     jcfg = JStepConfig(channels=2, tile_bytes=TILE, bit_depth=32,
-                       dither=DitherType.NONE, level_db=LEVEL)
-    pstep = make_phase_step(chain, jcfg)
-    h_p = init_phase_hists(build_chain_plans(chain), 2)
+                       dither=jtypes.DitherType.NONE, level_db=LEVEL)
+    jchain = _jchain(key)
+    pstep = make_phase_step(jchain, jcfg)
+    h_p = init_phase_hists(build_chain_plans(jchain), 2)
     halo_bytes = tfused.chain_halo_bytes(chain)
     h_t = tfused.init_fused_halo(chain, 2)
     gain = tfused._gain32(_cfg())
@@ -431,17 +442,17 @@ def test_port_matches_jax_fused_kernel_and_state_handover(key):
     for a word-lane (G=2) chain and an à-trous (÷64) chain: 24-bit NONE
     within 5 LSB, 32-bit within 2e-6, peaks within 1e-4, equal halos;
     then JAX tile 0 -> state_from_jax on the u16/u32 halo -> port tile 1."""
-    chain = get_chain(*key)
-    g = jfused.fused_plan(chain)[1]
+    chain, jchain = get_chain(*key), _jchain(key)
+    g = jfused.fused_plan(jchain)[1]
     x0, x1, x2 = _tiles(14, 3)
     for bits, tol in ((24, 5), (32, 2e-6)):
         jcfg = JStepConfig(channels=2, tile_bytes=TILE, bit_depth=bits,
-                           dither=DitherType.NONE, level_db=LEVEL)
-        jstep, halo_bytes = jfused.make_fused_step(chain, jcfg,
+                           dither=jtypes.DitherType.NONE, level_db=LEVEL)
+        jstep, halo_bytes = jfused.make_fused_step(jchain, jcfg,
                                                    interpret=True)
         assert halo_bytes == tfused.chain_halo_bytes(chain)
         step = tfused.make_fused_step(chain, _cfg(bit_depth=bits), "cpu")
-        h_j = jnp.asarray(jfused.init_fused_halo(chain, 2))
+        h_j = jnp.asarray(jfused.init_fused_halo(jchain, 2))
         h_t = tfused.init_fused_halo(chain, 2)
         for x in (x0, x1):
             oj, pj, h_j = jstep(jfused.prep_input(x, g), h_j, 0)

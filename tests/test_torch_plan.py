@@ -5,9 +5,11 @@ import numpy as np
 import pytest
 import torch
 
-from dsd2dxd_tpu.filters.design import get_chain
-from dsd2dxd_tpu.formats.dsd_types import DsdRate, FilterType
+from dsd2dxd_tpu.filters.design import get_chain as jget_chain
+from dsd2dxd_tpu.formats import dsd_types as jtypes
 from dsd2dxd_tpu.ops import phase as jphase
+from dsd2dxd_tpu_torch.filters.design import get_chain
+from dsd2dxd_tpu_torch.formats.dsd_types import DsdRate, FilterType
 from dsd2dxd_tpu_torch.ops import plan as tplan
 
 DIV8_CHAINS = [
@@ -22,12 +24,19 @@ OTHER_CHAINS = [
 ]
 
 
+
+def _jchain(key):
+    """The JAX package's chain for a port (filter, rate, out) key."""
+    return jget_chain(jtypes.FilterType[key[0].name],
+                      jtypes.DsdRate[key[1].name], key[2])
+
+
 @pytest.mark.parametrize("key", DIV8_CHAINS + OTHER_CHAINS,
                          ids=lambda k: f"{k[0].name}-{k[1].name}-{k[2]}")
 def test_plans_equal_jax_term_by_term(key):
     chain = get_chain(*key)
     mine = tplan.build_chain_plans(chain)
-    ref = jphase.build_chain_plans(chain)
+    ref = jphase.build_chain_plans(_jchain(key))
     assert len(mine) == len(ref)
     for a, b in zip(mine, ref):
         assert (a.L, a.M, a.p_in, a.p_out, a.lane_stride, a.hist_lanes,
@@ -73,7 +82,8 @@ def test_tree_sum_values_bit_equal_on_f32():
 def test_params_from_chain(key):
     chain = get_chain(*key)
     params = tplan.params_from_chain(chain)
-    for p, s, pl in zip(params, chain, jphase.build_chain_plans(chain)):
+    for p, s, pl in zip(params, chain,
+                        jphase.build_chain_plans(_jchain(key))):
         assert p.taps.dtype == torch.float32
         np.testing.assert_array_equal(p.taps.numpy(),
                                       np.asarray(s.taps, dtype=np.float32))

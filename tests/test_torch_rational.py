@@ -15,20 +15,22 @@ import numpy as np
 import pytest
 import torch
 
-from dsd2dxd_tpu.filters.design import chain_ratio, get_chain
-from dsd2dxd_tpu.formats.dsd_types import DitherType, DsdRate, FilterType
+from dsd2dxd_tpu.filters.design import get_chain as jget_chain
+from dsd2dxd_tpu.formats import dsd_types as jtypes
 from dsd2dxd_tpu.ops import fused as jfused
 from dsd2dxd_tpu.ops import phase as jphase
 from dsd2dxd_tpu.ops.resample import StepConfig as JStepConfig
 from dsd2dxd_tpu.pipeline.transfer import interleave_planes
-from dsd2dxd_tpu.utils.errors import ConfigError
 from dsd2dxd_tpu_torch import kernels
+from dsd2dxd_tpu_torch.filters.design import chain_ratio, get_chain
+from dsd2dxd_tpu_torch.formats.dsd_types import DitherType, DsdRate, FilterType
 from dsd2dxd_tpu_torch.ops import fused as tfused
 from dsd2dxd_tpu_torch.ops import philox
 from dsd2dxd_tpu_torch.ops import rational as trational
 from dsd2dxd_tpu_torch.ops.plan import state_from_jax
 from dsd2dxd_tpu_torch.ops.resample import StepConfig
 from dsd2dxd_tpu_torch.pipeline import engine as tengine
+from dsd2dxd_tpu_torch.utils.errors import ConfigError
 
 E = FilterType.EQUIRIPPLE
 CHAINS_48K = [(E, rate, out)
@@ -50,7 +52,13 @@ def _cfg(bits=24, dither=DitherType.NONE, tile=TILE, level=LEVEL):
 
 def _jcfg(bits=24, dither=DitherType.NONE, tile=TILE, level=LEVEL):
     return JStepConfig(channels=2, tile_bytes=tile, bit_depth=bits,
-                       dither=dither, level_db=level)
+                       dither=jtypes.DitherType[dither.name], level_db=level)
+
+
+def _jchain(key):
+    """The JAX package's chain for a port (filter, rate, out) key."""
+    return jget_chain(jtypes.FilterType[key[0].name],
+                      jtypes.DsdRate[key[1].name], key[2])
 
 
 def _tiles(seed, n, tile=TILE):
@@ -82,18 +90,19 @@ def _decode(wire: torch.Tensor, bits: int, big_endian=False) -> np.ndarray:
 def test_band_equals_jax(key):
     """The ×160/147 band and nhist equal the JAX plan_banded_natural's,
     and every 48k chain is a ÷2^k head the kernel runs plus that stage."""
-    chain = get_chain(*key)
+    chain, jchain = get_chain(*key), _jchain(key)
     rp = trational.rational_plan(chain)
     band, nhist = jphase.plan_banded_natural(
-        jphase.build_plan(chain[-1], p_in=1))
+        jphase.build_plan(jchain[-1], p_in=1))
     np.testing.assert_array_equal(rp.band, band)
     assert rp.nhist == nhist and rp.band.dtype == np.float32
     assert (chain[-1].L, chain[-1].M) == (160, 147)
     assert (rp.p_in, rp.p_out) == (147, 160)
-    assert rp.n_head == jfused.fused_rational_plan(chain) == len(chain) - 1
+    assert rp.n_head == jfused.fused_rational_plan(jchain) == len(chain) - 1
     assert rp.r_head * key[2] * 147 // 160 == key[1].hz
     head = chain[:rp.n_head]
-    assert tfused.chain_halo_bytes(head) == jfused.chain_halo_bytes(head)
+    assert tfused.chain_halo_bytes(head) == jfused.chain_halo_bytes(
+        jchain[:rp.n_head])
     # the engine's tile: whole band blocks and whole kernel blocks
     tile = tengine._tile_bytes_for(chain, 1 << 20)
     assert tile * 8 % rp.unit_bits == 0 and rp.unit_bits == 147 * rp.r_head
@@ -116,9 +125,8 @@ def test_rational_tail_matches_jax(key):
     """rational_tail against JAX stage_apply_rational_natural on random
     f32, three streamed tiles with the history carried: within 1e-6
     (both fp32, summed in another order), histories equal."""
-    chain = get_chain(*key)
-    rp = trational.rational_plan(chain)
-    plan = jphase.build_plan(chain[-1], p_in=1)
+    rp = trational.rational_plan(get_chain(*key))
+    plan = jphase.build_plan(_jchain(key)[-1], p_in=1)
     band_t = torch.from_numpy(rp.band.T.copy())
     rng = np.random.default_rng(21)
     h_j = jphase.init_phase_hists((plan,), 2)[0]
@@ -220,14 +228,15 @@ def jax_rational_runs():
     """The JAX rational step (interpret mode, frames out) over three
     random tiles of E DSD64 -> 384k at level -1.5 dB, f32 and 24-bit
     NONE: outputs, peaks and the state after each tile, as numpy."""
-    chain = get_chain(*E64_384)
+    chain = _jchain(E64_384)
     g = jfused.fused_plan(chain[:-1])[1]
     xs = _tiles(25, 3)
     runs = {}
     for bits in (32, 24):
         jstep, halo_bytes = jfused.make_fused_rational_step(
             chain, _jcfg(bits), block_bytes=2688, interpret=True)
-        assert halo_bytes == tfused.chain_halo_bytes(chain[:-1])
+        assert halo_bytes == tfused.chain_halo_bytes(
+            get_chain(*E64_384)[:-1])
         halo, hist = jfused.init_fused_rational_state(chain, 2)
         state = (jnp.asarray(halo), hist)
         outs, peaks, states = [], [], []
@@ -252,7 +261,8 @@ def test_step_matches_jax_rational_step(jax_rational_runs, bits, tol):
     outs, peaks, states = runs[bits]
     step = trational.make_rational_step(chain, _cfg(bits), "cpu")
     state = trational.init_rational_state(chain, 2)
-    j0 = state_from_jax(jfused.init_fused_rational_state(chain, 2))
+    j0 = state_from_jax(jfused.init_fused_rational_state(_jchain(E64_384),
+                                                         2))
     assert torch.equal(j0[0], state[0]) and torch.equal(j0[1], state[1])
     for t, x in enumerate(xs):
         wire, peak, state = step(torch.from_numpy(x), state, t)
@@ -445,8 +455,10 @@ def test_step_covers_every_epilogue(bits, dither):
 def test_digest_covers_every_csrc_file(tmp_path):
     """An edit to a header alone (csrc/epilogue.cuh, which both kernels
     include) changes the library's name, so no stale build is loaded."""
-    assert set(kernels.SOURCES) == {"fused_decim.cu", "finish.cu"}
+    assert set(kernels.SOURCES) == {"fused_decim.cu", "finish.cu",
+                                   "probes.cu"}
     assert (kernels.CSRC / "epilogue.cuh").is_file()
+    assert (kernels.CSRC / "decim_body.cuh").is_file()
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
     before = kernels._digest(csrc)

@@ -7,14 +7,22 @@ import numpy as np
 import pytest
 import torch
 
-from dsd2dxd_tpu.filters.design import get_chain
-from dsd2dxd_tpu.formats.dsd_types import DitherType, DsdRate, FilterType
+from dsd2dxd_tpu.filters.design import get_chain as jget_chain
+from dsd2dxd_tpu.formats import dsd_types as jtypes
 from dsd2dxd_tpu.ops import resample as jres
+from dsd2dxd_tpu_torch.filters.design import get_chain
+from dsd2dxd_tpu_torch.formats.dsd_types import DitherType, DsdRate, FilterType
 from dsd2dxd_tpu_torch.ops import resample as tres
 
 E64 = (FilterType.EQUIRIPPLE, DsdRate.DSD64, 352800)
 D64 = (FilterType.DSD2PCM, DsdRate.DSD64, 352800)
 TILE = 4096
+
+
+def _jchain(key):
+    """The JAX package's chain for a port (filter, rate, out) key."""
+    return jget_chain(jtypes.FilterType[key[0].name],
+                      jtypes.DsdRate[key[1].name], key[2])
 
 
 def _tiles(seed, n, channels=2, tile=TILE):
@@ -35,11 +43,11 @@ def test_make_step_f32_matches_jax_and_upfirdn(key):
     cfg_t = tres.StepConfig(channels=2, tile_bytes=TILE, bit_depth=32,
                             dither=DitherType.NONE, level_db=-1.5)
     cfg_j = jres.StepConfig(channels=2, tile_bytes=TILE, bit_depth=32,
-                            dither=DitherType.NONE, level_db=-1.5)
+                            dither=jtypes.DitherType.NONE, level_db=-1.5)
     tstep = tres.make_step(chain, cfg_t)
-    jstep = jres.make_step(chain, cfg_j)
+    jstep = jres.make_step(_jchain(key), cfg_j)
     h_t = tres.init_hists(chain, 2)
-    h_j = jres.init_hists(chain, 2)
+    h_j = jres.init_hists(_jchain(key), 2)
     outs = []
     xs = _tiles(2, 3)
     for t, x in enumerate(xs):
@@ -66,11 +74,11 @@ def test_make_step_int24_matches_jax():
     cfg_t = tres.StepConfig(channels=2, tile_bytes=TILE, bit_depth=24,
                             dither=DitherType.NONE, level_db=-1.5)
     cfg_j = jres.StepConfig(channels=2, tile_bytes=TILE, bit_depth=24,
-                            dither=DitherType.NONE, level_db=-1.5)
+                            dither=jtypes.DitherType.NONE, level_db=-1.5)
     tstep = tres.make_step(chain, cfg_t)
-    jstep = jres.make_step(chain, cfg_j)
+    jstep = jres.make_step(_jchain(E64), cfg_j)
     h_t = tres.init_hists(chain, 2)
-    h_j = jres.init_hists(chain, 2)
+    h_j = jres.init_hists(_jchain(E64), 2)
     for t, x in enumerate(_tiles(3, 2)):
         ot, _, h_t = tstep(torch.from_numpy(x), h_t)
         oj, _, h_j = jstep(x, h_j, jax.random.PRNGKey(t))
