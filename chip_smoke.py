@@ -9,7 +9,11 @@ one line per chain); any failed check exits non-zero:
 1. env: Python, torch and CUDA versions, nvcc, the card (nvidia-smi).
 2. build: compiles csrc/fused_decim.cu (K1a-K1e), csrc/finish.cu (K2) and
    csrc/probes.cu (P1, P2) with one nvcc each, started together, and
-   links them; prints every instantiation's registers and spills.
+   links them; prints every kernel's registers, spills and stack frame.
+   Then K1 at each mode's chain and block: shared memory per block,
+   resident blocks and warps per SM (cudaOccupancyMaxActiveBlocksPer
+   Multiprocessor), registers and local bytes per thread
+   (cudaFuncGetAttributes); ÷64 and ÷128 must keep 24 warps per SM.
 3. kernel vs plain (K1a-K1d), two channels, three streamed tiles of the
    size the engine gives each input rate (4 MiB/ch at DSD64 ... 32 MiB/ch
    at DSD512), level -1.5 dB, the plain PyTorch version on the same inputs:
@@ -58,7 +62,9 @@ one line per chain); any failed check exits non-zero:
 9. e2e, BASELINE config 4: a one-minute DSD256 stereo .dsf (169 MB)
    through the CLI with `-b 32 -o C -r 192000` (FPD by default); checks
    the AIFC `fl32` header, 60 x 192000 frames, the 1 kHz peak on both
-   channels and one K1e and one K2 launch per tile.
+   channels and one K1e and one K2 launch per tile. Then the same .dsf
+   to a 24-bit 88.2 kHz TPDF WAV (÷128, K1c's deepest chain): the
+   header, the frame count, the 1 kHz peak and one K1c launch per tile.
 10. probes: the floor probes of K1 (dsd2dxd_tpu_torch/tools). Every P1
     mode (dmabench: noop, noflush, dma, halo0, contig, bspec) at each of
     K1's blocks against its plain version on 2 staged 16 MiB/ch stereo
@@ -84,7 +90,8 @@ one line per chain); any failed check exits non-zero:
 Each phase line ends with the seconds since the start. At the end it
 checks that neither jax nor any module of the JAX package (dsd2dxd_tpu)
 was loaded. Then the card's name and power limit, one JSON line on the
-kernels (launches from the e2e phase or tool run that drives each;
+kernels (K1's ÷128 chain a row of its own; launches from the e2e phase
+or tool run that drives each;
 max_abs_err in LSB of the output depth, absolute for f32; bound_ms the
 larger of the bytes over 3.35 TB/s and the f32 operations over 67
 TFLOP/s, from this run's inputs; library_ms the one PyTorch call of the
@@ -266,11 +273,11 @@ def fir_flops(chain, frames: int, channels: int) -> int:
 
 
 def ptxas_summary(log: str) -> str:
-    """'kernel<template ints>: N regs, S spill' for every entry ptxas
-    compiled, from nvcc's -Xptxas -v output."""
+    """'kernel<template ints>: N regs, S spill, F stack' for every entry
+    ptxas compiled, from nvcc's -Xptxas -v output."""
     import re
 
-    out, name = [], None
+    out, name, stack = [], None, "?"
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(_Z(\d+)\w+)'", ln)
         if m:
@@ -279,13 +286,15 @@ def ptxas_summary(log: str) -> str:
             args = re.findall(r"L[ib](\d+)E", mangled)
             name = f"{base}<{','.join(args)}>"
             continue
-        m = re.search(r"(\d+) bytes spill stores", ln)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      ln)
         if m and name:
-            spill = m.group(1)
+            stack, spill = m.group(1), m.group(2)
             continue
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            out.append(f"{name}: {m.group(1)} regs, {spill} spill")
+            out.append(f"{name}: {m.group(1)} regs, {spill} spill, "
+                       f"{stack} stack")
             name = None
     return "; ".join(out)
 
@@ -328,10 +337,31 @@ def main() -> int:
     kernels.load()
     build_s = time.perf_counter() - t0
     phase("build", f"{build_s:.1f} s for {', '.join(kernels.SOURCES)} "
-          f"(one nvcc each, in parallel; sm_90a; fused_decim: 11 epilogue "
-          f"instantiations + the K1e planar head, finish: 11, probes: 6 P1 "
-          f"modes + 7 P2 rungs); ptxas: "
+          f"(one nvcc each, in parallel; sm_90a; fused_decim: one kernel, "
+          f"its 11 epilogues and the K1e planar head chosen per launch, "
+          f"finish: 11, probes: 6 P1 modes + 7 P2 rungs); ptxas: "
           f"{ptxas_summary(kernels.BUILD_LOG) or 'cached'}")
+    occ_text = []
+    for mode, key in (("K1a ÷8", (E, DsdRate.DSD64, 352800)),
+                      ("K1b ÷16", (E, DsdRate.DSD64, 176400)),
+                      ("K1b ÷32", (E, DsdRate.DSD64, 88200)),
+                      ("K1c/K1d ÷64", (E, DsdRate.DSD128, 88200)),
+                      ("K1c ÷128", (E, DsdRate.DSD256, 88200)),
+                      ("K1e ÷16 head", (E, DsdRate.DSD64, 192000)),
+                      ("K1e ÷128 head", (E, DsdRate.DSD256, 96000))):
+        chain = get_chain(*key)
+        head = chain[:rational.rational_plan(chain).n_head] \
+            if "K1e" in mode else chain
+        o = fused.kernel_occupancy(head)
+        if mode in ("K1c/K1d ÷64", "K1c ÷128"):
+            check(o["warps_per_sm"] >= 24,
+                  f"K1 {mode}: {o['warps_per_sm']} warps per SM")
+        occ_text.append(
+            f"{mode} block_out {fused.block_out_for(head)}: "
+            f"{o['smem_bytes'] / 1024:.1f} KB smem/block, "
+            f"{o['blocks_per_sm']} blocks = {o['warps_per_sm']} warps/SM, "
+            f"{o['regs']} regs, {o['local_bytes']} B local")
+    phase("occupancy", "K1: " + "; ".join(occ_text))
 
     def decode(wire, bits):
         """Little-endian wire bytes on the card -> int64 samples at the
@@ -435,7 +465,7 @@ def main() -> int:
             text += f" rms {rms:.4f} mean {mean:+.5f}"
         return text
 
-    max_err = {m: 0.0 for m in fused.MODE_LAUNCHES}
+    max_err = {m: 0.0 for m in [*fused.MODE_LAUNCHES, "÷128"]}
     rng = np.random.default_rng(2026)
     for name, key, epilogues in cells:
         chain = get_chain(*key)
@@ -471,7 +501,8 @@ def main() -> int:
             h = x[:, tile - h.shape[1]:].contiguous()
         parts = []
         for (bits, dither), s in st.items():
-            for m in fused.kernel_modes(chain, bits):
+            for m in fused.kernel_modes(chain, bits) + (
+                    ("÷128",) if r == 128 else ()):
                 max_err[m] = max(max_err[m], s["diff"])
             parts.append(verdict(name, bits, dither, s))
         phase("kernel-vs-plain",
@@ -526,7 +557,7 @@ def main() -> int:
             tile = engine_tile(chain, rate)
             taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32),
                                  device=dev) for s in head]
-            flat = torch.cat(taps)
+            coefs = fused.kernel_coefs(head, dev)
             band_t = torch.from_numpy(rp.band.T.copy()).to(dev)
             cfg0 = StepConfig(channels=2, tile_bytes=tile, bit_depth=24,
                               dither=T, level_db=-1.5)
@@ -546,7 +577,7 @@ def main() -> int:
                 x = torch.from_numpy(rng.integers(0, 256, (2, tile),
                                                   dtype=np.uint8)).to(dev)
                 k64 = philox.tile_key(8, t)
-                yk = fused.fused_head_cuda(x, halo, flat, head)
+                yk = fused.fused_head_cuda(x, halo, coefs, head)
                 yp = fused.fused_decim_cascade(x, halo, taps, head, 1.0)
                 torch.cuda.synchronize()
                 head_eq = head_eq and torch.equal(yk, yp)
@@ -832,6 +863,37 @@ def main() -> int:
               f"audio-s/s; {n_tiles} tiles of {tile_bytes} B/ch, "
               f"{launches['K1e']} K1e + {launches['K2']} K2 launches; FFT "
               f"peak {peak_hz.tolist()} Hz; card [{label}]")
+        aifc_path.unlink()
+
+        # 9b. e2e, ÷128: the same DSD256 .dsf -> 24-bit 88.2 kHz TPDF WAV -
+        chain = get_chain(E, DsdRate.DSD256, 88200)
+        tile_bytes = engine_tile(chain, DsdRate.DSD256)
+        n_tiles = -(-n256 // tile_bytes)
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_run(["-o", "w", "-r", "88200", "-q", "-p", str(out_dir),
+                      str(src)])
+        wall = time.perf_counter() - t0
+        launches["÷128"] = fused.MODE_LAUNCHES["K1c"]
+        check(rc == 0, f"CLI exited {rc}")
+        check(launches["÷128"] == fused.KERNEL_LAUNCHES == n_tiles,
+              f"K1c (÷128) launched {launches['÷128']} times for {n_tiles} "
+              f"tiles")
+        wav_path = out_dir / "tone_dsd256_60s.wav"
+        with wave.open(str(wav_path)) as w:
+            params = (w.getnchannels(), w.getsampwidth(), w.getframerate(),
+                      w.getnframes())
+            check(params == (2, 3, 88200, sec * 88200), f"WAV params {params}")
+            w.setpos(sec // 2 * 88200)
+            pcm = s24(w.readframes(88200)).reshape(-1, 2)
+        check(np.abs(pcm).max() > 1 << 20, "output is silent")
+        peak_hz = fft_peak_hz(pcm, 88200)
+        check(np.all(np.abs(peak_hz - 1000.0) < 2.0), f"FFT peak at {peak_hz} Hz")
+        phase("e2e", f"÷128: CLI {sec} s DSD256 stereo .dsf -> 24-bit 88.2k "
+              f"TPDF WAV ({wav_path.stat().st_size / 1e6:.1f} MB) in "
+              f"{wall:.2f} s = {sec / wall:.1f} audio-s/s; {n_tiles} tiles "
+              f"of {tile_bytes} B/ch, {launches['÷128']} K1c launches; FFT "
+              f"peak {peak_hz.tolist()} Hz; card [{label}]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1107,16 +1169,16 @@ def main() -> int:
               for _ in range(n)]
         taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32),
                              device=dev) for s in head]
-        flat = torch.cat(taps)
+        coefs = fused.kernel_coefs(head, dev)
         band_t = torch.from_numpy(rp.band.T.copy()).to(dev)
         halo, hist = rational.init_rational_state(chain, 2, dev)
-        ys = [fused.fused_head_cuda(x, halo, flat, head) for x in xs]
+        ys = [fused.fused_head_cuda(x, halo, coefs, head) for x in xs]
         zs = [rational.rational_tail(y, hist, band_t, rp.nhist)[0]
               for y in ys]
         keys = [philox.tile_key(12, i) for i in range(n)]
         head_k, head_p, head_runs = alternate(
             lambda i: fused.fused_decim_cascade(xs[i], halo, taps, head, 1.0),
-            lambda i: fused.fused_head_cuda(xs[i], halo, flat, head), n)
+            lambda i: fused.fused_head_cuda(xs[i], halo, coefs, head), n)
         tail_ms = (ev_ms(lambda i: rational.rational_tail(
             ys[i], hist, band_t, rp.nhist), n) + ev_ms(
             lambda i: rational.rational_tail(ys[i], hist, band_t, rp.nhist),
@@ -1166,14 +1228,17 @@ def main() -> int:
     jax_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "dsd2dxd_tpu")
     check(not jax_pkg, f"modules of the JAX package were loaded: {jax_pkg}")
     check(all(launches[m] > 0 for m in ("K1a", "K1b", "K1c", "K1d", "K1e",
-                                        "K2")),
+                                        "K2", "÷128")),
           f"a kernel mode was not launched on its path: {launches}")
     k1 = "dsd2dxd_tpu_torch/csrc/fused_decim.cu"
     rows = [("K1a", "fused_decim (K1a: G=1 ÷8, 24-bit)", k1,
              "dsd2dxd_tpu/ops/fused.py:287 (_build_kernel, G=1, 24-bit)"),
             ("K1b", "fused_decim (K1b: ÷16/÷32 word lanes)", k1,
              "dsd2dxd_tpu/ops/fused.py:287 (_build_kernel, G=2/4 word lanes)"),
-            ("K1c", "fused_decim (K1c: ÷64/÷128 à-trous tail)", k1,
+            ("K1c", "fused_decim (K1c: ÷64/÷128 à-trous tail; ÷64 E "
+             "DSD128->88.2k)", k1,
+             "dsd2dxd_tpu/ops/fused.py:287 (_build_kernel, à-trous tail)"),
+            ("÷128", "fused_decim (K1c at ÷128: E DSD256->88.2k)", k1,
              "dsd2dxd_tpu/ops/fused.py:287 (_build_kernel, à-trous tail)"),
             ("K1d", "fused_decim (K1d: 16/20-bit, f32/FPD epilogues)", k1,
              "dsd2dxd_tpu/ops/fused.py:287 (_build_kernel, epilogues)"),

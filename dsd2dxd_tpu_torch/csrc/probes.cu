@@ -3,8 +3,8 @@
 // P1 replaces the TPU kernel tools/dmabench.py::_probe (its pallas_call):
 // K1's scaffold with no DSP, in seven modes that split the copy and launch
 // floor of a block from everything else. P2 replaces
-// tools/floorstrip.py::_probe_step (its pallas_call): K1 itself, cut short
-// at successive points of its body. Plain versions (PyTorch):
+// tools/floorstrip.py::_probe_step (its pallas_call): K1's body cut short
+// at successive points. Plain versions (PyTorch):
 // dsd2dxd_tpu_torch/tools/dmabench.py::dma_probe_reference and
 // dsd2dxd_tpu_torch/tools/floorstrip.py::probe_step_reference; the CUDA
 // entries are bound in tools/ through kernels.py.
@@ -22,7 +22,7 @@
 //            row_words words at slab offset c * row_words
 //   bspec    the same words brought to shared memory by one bulk copy
 //            (cp.async.bulk, the Tensor Memory Accelerator's 1-D copy,
-//            completing on an mbarrier), the copy engine K1 does not use
+//            completing on an mbarrier)
 // Each block stores the last k_sub words of what it loaded, as f32 of their
 // int32 bits, from shared memory: the stores depend on the loads, so nvcc
 // keeps them. (The seventh mode, relayout, is the halo replication in
@@ -30,12 +30,14 @@
 // output block holds, element by element, the value of some block; the
 // plain version returns every block's and the checks hold it so.
 //
-// P2 (probe_step_kernel<RUNG, DITHER>): K1 on DecimParams and
-// decim_body.cuh, stopped after
-//   dma     the window's bytes (K1's loads, one byte per thread) into
-//           shared memory; out[c][m] = the block's j-th byte (frame m =
-//           m0 + j), the cheapest store that depends on them
-//   unpack  + K1's unpack to ±1 f32; out[c][m] = the sum of the samples
+// P2 (probe_step_kernel<RUNG, DITHER>): K1's body as it was before its
+// redesign for Hopper (the unpacked-window kernel: byte loads, an unpack
+// to ±1 f32 in shared memory, one FIR routine for every stage), on
+// ProbeParams (tools/floorstrip.py::probe_params), stopped after
+//   dma     the window's bytes (one byte per thread) into shared memory;
+//           out[c][m] = the block's j-th byte (frame m = m0 + j), the
+//           cheapest store that depends on them
+//   unpack  + the unpack to ±1 f32; out[c][m] = the sum of the samples
 //           j, j + block_out, j + 2 block_out, ... (R of them, R = 8 *
 //           frame_bytes): an aligned consume, each warp reading 32
 //           consecutive floats, so it adds no bank conflict of its own
@@ -44,24 +46,169 @@
 //           consecutive floats, one per bank, so no bank conflict, where
 //           the real stride-2 reads are 2-way conflicts; numerically wrong
 //           on purpose
-//   cas0    + the real cascade (K1's run_stages and last_stage); planar
-//           f32 out at gain 1 and the peak over frames m < n_valid (K1e's
-//           output plus K1's peak)
-//   quant   + the epilogue of K1 at 24 bit (dither, rint, clip) as int32
-// The last rung, full, is K1 itself (ops/fused.py::make_fused_step). The
-// TPU ladder's `fan` rung (the sublane fan-in of sub-blocks) has no
-// counterpart: K1's blocks are independent windows.
+//   cas0    + the real cascade (run_stages and last_stage); planar f32 out
+//           at gain 1 and the peak over frames m < n_valid
+//   quant   + K1's epilogue at 24 bit (dither, rint, clip) as int32
+// The last rung, full, is K1 itself (ops/fused.py::make_fused_step, the
+// redesigned kernel of fused_decim.cu), so quant beside full is the old
+// body beside the new one in the same run. The TPU ladder's `fan` rung
+// (the sublane fan-in of sub-blocks) has no counterpart: K1's blocks are
+// independent windows.
 //
 // What bounds them on an H100: P1 and P2's dma rung move bytes and do
 // nothing else, so memory (3.35 TB/s) and the launch of the grid; unpack
-// adds R shared-memory writes per frame; the cascade rungs add K1's FIR
+// adds R shared-memory writes per frame; the cascade rungs add the FIR
 // work (2 products per stage per output at the scale-0 taps of the
-// synthetic chain). The designs are K1's, on purpose: they measure it.
+// synthetic chain).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "decim_body.cuh"
+#include "epilogue.cuh"
+
+#define MAX_STAGES 8
+#define MAX_LEVELS 8  // tree levels: taps per stage < 256
+
+struct ProbeParams {
+  int n_stages;
+  int channels;
+  int tile_bytes;    // T: input bytes per channel
+  int tile_frames;   // T_out = T / frame_bytes: output frames per channel
+  int frame_bytes;   // input bytes per output frame (R / 8)
+  int n_valid;       // frames m >= n_valid leave the peak alone
+  int halo_bytes;    // H
+  int block_out;     // output frames per block
+  int byte_off;      // window byte of the block's first input byte, minus m0 * frame_bytes
+  int bit_off;       // first needed bit inside that byte
+  int n_load_bytes;  // bytes each block unpacks
+  int n_taps_total;
+  int buf_a;         // float offsets into dynamic shared memory
+  int buf_b;
+  int smem_bytes;
+  int n_taps[MAX_STAGES];
+  int decim[MAX_STAGES];
+  int tap_off[MAX_STAGES];
+  int out_len[MAX_STAGES];  // outputs per block of each stage
+  float gain;
+  int apply_gain;
+  int bit_depth;     // 16, 20, 24 (integer) or 32 (float)
+  int dither;        // DITHER_*
+  uint32_t key0;
+  uint32_t key1;
+  int big_endian;
+  int planar;        // unused by the rungs (K1's field)
+};
+
+// sum_{k<n} h[k] * src[-k], summed pairwise in the order of the plain
+// version's tree_sum.
+__device__ __forceinline__ float fir_tree(const float* __restrict__ h,
+                                          const float* src, int n) {
+  float acc[MAX_LEVELS];
+  for (int k = 0; k < n; ++k) {
+    float v = __fmul_rn(h[k], src[-k]);
+#pragma unroll
+    for (int lv = 0; lv < MAX_LEVELS; ++lv) {
+      if ((k >> lv) & 1) {
+        v = __fadd_rn(acc[lv], v);
+      } else {
+        acc[lv] = v;
+        break;
+      }
+    }
+  }
+  float out = 0.0f;
+  bool have = false;
+#pragma unroll
+  for (int lv = 0; lv < MAX_LEVELS; ++lv) {
+    if ((n >> lv) & 1) {
+      out = have ? __fadd_rn(acc[lv], out) : acc[lv];
+      have = true;
+    }
+  }
+  return out;
+}
+
+// The taps to h_s, then every window byte i < n_load_bytes of the block
+// whose first output frame is m0 (channel c) to store(i, byte); a barrier
+// after. Bytes past the window read as the DSD idle byte.
+template <typename Store>
+__device__ __forceinline__ void load_window(const uint8_t* __restrict__ halo,
+                                            const uint8_t* __restrict__ x,
+                                            const float* __restrict__ taps,
+                                            float* h_s, const ProbeParams& p,
+                                            int c, long long m0, Store store) {
+  const long long H = p.halo_bytes;
+  const long long T = p.tile_bytes;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < p.n_taps_total; i += blockDim.x) h_s[i] = taps[i];
+  const long long wb0 = m0 * p.frame_bytes + p.byte_off;
+  for (int i = tid; i < p.n_load_bytes; i += blockDim.x) {
+    const long long wb = wb0 + i;  // window byte
+    uint32_t byte = 0x69u;         // DSD idle past the window
+    if (wb < H) {
+      byte = halo[c * H + wb];
+    } else if (wb - H < T) {
+      byte = x[c * T + (wb - H)];
+    }
+    store(i, byte);
+  }
+  __syncthreads();
+}
+
+// The unpack: byte i as its 8 MSB-first ±1 samples at buf[8i ...].
+__device__ __forceinline__ void unpack_byte(float* buf, int i, uint32_t byte) {
+#pragma unroll
+  for (int b = 0; b < 8; ++b)
+    buf[8 * i + b] = ((byte >> (7 - b)) & 1u) ? 1.0f : -1.0f;
+}
+
+// Stages 0 .. n_stages-2 of the cascade over the unpacked window in
+// buf_a; returns the last stage's input. STRIDE1: output j reads its
+// input from j on instead of M j (P2's cas0a rung): a warp's reads are 32
+// consecutive floats, 32 distinct banks, so no bank conflict; numerically
+// wrong on purpose.
+template <bool STRIDE1 = false>
+__device__ __forceinline__ const float* run_stages(const float* h_s,
+                                                   float* buf_a, float* buf_b,
+                                                   const ProbeParams& p) {
+  const float* in = buf_a + p.bit_off;
+  const int last = p.n_stages - 1;
+  for (int s = 0; s < last; ++s) {
+    float* dst = ((s + 1) & 1) ? buf_b : buf_a;
+    const float* h = h_s + p.tap_off[s];
+    const int n = p.n_taps[s];
+    const int m = STRIDE1 ? 1 : p.decim[s];
+    const int len = p.out_len[s];
+    for (int j = threadIdx.x; j < len; j += blockDim.x)
+      dst[j] = fir_tree(h, in + m * j + n - 1, n);
+    __syncthreads();
+    in = dst;
+  }
+  return in;
+}
+
+// The last stage for the block's frames m = m0 + j < tile_frames: y = its
+// output (times p.gain when p.apply_gain), handed to emit(m, y). Returns
+// the thread's max |y| over frames m < n_valid when PEAK, else 0.
+template <bool PEAK, bool STRIDE1 = false, typename Emit>
+__device__ __forceinline__ float last_stage(const float* h_s, const float* in,
+                                            const ProbeParams& p,
+                                            long long m0, Emit emit) {
+  const int last = p.n_stages - 1;
+  const float* h = h_s + p.tap_off[last];
+  const int n = p.n_taps[last];
+  const int md = STRIDE1 ? 1 : p.decim[last];
+  float local_peak = 0.0f;
+  for (int j = threadIdx.x; j < p.block_out; j += blockDim.x) {
+    const long long m = m0 + j;
+    if (m >= p.tile_frames) break;
+    float y = fir_tree(h, in + md * j + n - 1, n);
+    if (p.apply_gain) y = __fmul_rn(y, p.gain);
+    if (PEAK && m < p.n_valid) local_peak = fmaxf(local_peak, fabsf(y));
+    emit(m, y);
+  }
+  return local_peak;
+}
 
 enum { P1_NOOP = 0, P1_NOFLUSH = 1, P1_DMA = 2, P1_HALO0 = 3, P1_CONTIG = 4,
        P1_BSPEC = 5 };
@@ -168,6 +315,8 @@ static int launch_dma(const void* x, void* out, const DmaParams* p,
 
 extern "C" int dsd2dxd_dma_params_size() { return (int)sizeof(DmaParams); }
 
+extern "C" int dsd2dxd_probe_params_size() { return (int)sizeof(ProbeParams); }
+
 extern "C" int dsd2dxd_dma_probe(const void* x, void* out, int mode,
                                  const DmaParams* p, void* stream) {
   if (p->n_blocks < 1 || p->rows < 1 || p->k_sub < 1)
@@ -189,7 +338,7 @@ __global__ void __launch_bounds__(THREADS)
 probe_step_kernel(const uint8_t* __restrict__ halo,
                   const uint8_t* __restrict__ x,
                   const float* __restrict__ taps, void* __restrict__ out,
-                  float* __restrict__ peak, const DecimParams p) {
+                  float* __restrict__ peak, const ProbeParams p) {
   extern __shared__ float smem[];
   const int c = blockIdx.y;
   const long long m0 = (long long)blockIdx.x * p.block_out;
@@ -240,7 +389,7 @@ probe_step_kernel(const uint8_t* __restrict__ halo,
 
 template <int RUNG, int DITHER = DITHER_NONE>
 static int launch_step(const void* halo, const void* x, const void* taps,
-                       void* out, void* peak, const DecimParams* p,
+                       void* out, void* peak, const ProbeParams* p,
                        cudaStream_t stream) {
   auto kernel = probe_step_kernel<RUNG, DITHER>;
   if (p->smem_bytes > 48 * 1024) {
@@ -258,7 +407,7 @@ static int launch_step(const void* halo, const void* x, const void* taps,
 
 extern "C" int dsd2dxd_probe_step(const void* halo, const void* x,
                                   const void* taps, void* out, void* peak,
-                                  int rung, const DecimParams* p,
+                                  int rung, const ProbeParams* p,
                                   void* stream) {
   if (p->n_stages < 1 || p->n_stages > MAX_STAGES || p->tile_frames < 1)
     return (int)cudaErrorInvalidValue;

@@ -33,13 +33,59 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-MAX_STAGES = 8  # must equal MAX_STAGES in csrc/decim_body.cuh
+MAX_STAGES = 8  # must equal MAX_STAGES in csrc/fused_decim.cu and probes.cu
+VEC = 4         # must equal VEC in csrc/fused_decim.cu
+
+_EPILOGUE_FIELDS = [
+    ("gain", ctypes.c_float),
+    ("apply_gain", ctypes.c_int),
+    ("bit_depth", ctypes.c_int),
+    ("dither", ctypes.c_int),
+    ("key0", ctypes.c_uint32),
+    ("key1", ctypes.c_uint32),
+    ("big_endian", ctypes.c_int),
+    ("planar", ctypes.c_int),
+]
 
 
 class DecimParams(ctypes.Structure):
-    """Mirror of ``struct DecimParams`` in csrc/decim_body.cuh (all fields
-    4 bytes wide, so natural alignment matches the C layout; the loader
+    """Mirror of ``struct DecimParams`` in csrc/fused_decim.cu, K1's block
+    geometry (``ops/fused.py::KernelLayout``) and epilogue (all fields 4
+    bytes wide, so natural alignment matches the C layout; the loader
     also compares sizeof on both sides)."""
+
+    _fields_ = [
+        ("n_stages", ctypes.c_int),
+        ("channels", ctypes.c_int),
+        ("tile_bytes", ctypes.c_int),
+        ("tile_frames", ctypes.c_int),
+        ("frame_bytes", ctypes.c_int),
+        ("n_valid", ctypes.c_int),
+        ("halo_bytes", ctypes.c_int),
+        ("block_out", ctypes.c_int),
+        ("byte_off", ctypes.c_int),
+        ("bit_off", ctypes.c_int),
+        ("n_load_bytes", ctypes.c_int),
+        ("n_groups", ctypes.c_int),
+        ("decim0", ctypes.c_int),
+        ("n_coefs", ctypes.c_int),
+        ("win", ctypes.c_int),
+        ("buf_a", ctypes.c_int),
+        ("buf_b", ctypes.c_int),
+        ("smem_bytes", ctypes.c_int),
+        ("n_taps", ctypes.c_int * MAX_STAGES),
+        ("tap_off", ctypes.c_int * MAX_STAGES),
+        ("n_out", ctypes.c_int * MAX_STAGES),
+        ("half", ctypes.c_int * MAX_STAGES),
+        *_EPILOGUE_FIELDS,
+    ]
+
+
+class ProbeParams(ctypes.Structure):
+    """Mirror of ``struct ProbeParams`` in csrc/probes.cu, the P2 rungs'
+    block geometry (``tools/floorstrip.py::probe_params``: the unpacked
+    stage-0 window of K1 before its redesign) and K1's epilogue fields
+    (all 4 bytes wide; the loader compares sizeof)."""
 
     _fields_ = [
         ("n_stages", ctypes.c_int),
@@ -61,14 +107,7 @@ class DecimParams(ctypes.Structure):
         ("decim", ctypes.c_int * MAX_STAGES),
         ("tap_off", ctypes.c_int * MAX_STAGES),
         ("out_len", ctypes.c_int * MAX_STAGES),
-        ("gain", ctypes.c_float),
-        ("apply_gain", ctypes.c_int),
-        ("bit_depth", ctypes.c_int),
-        ("dither", ctypes.c_int),
-        ("key0", ctypes.c_uint32),
-        ("key1", ctypes.c_uint32),
-        ("big_endian", ctypes.c_int),
-        ("planar", ctypes.c_int),
+        *_EPILOGUE_FIELDS,
     ]
 
 
@@ -187,13 +226,18 @@ def load() -> ctypes.CDLL:
         lib.dsd2dxd_fused_decim.argtypes = [
             ctypes.c_void_p,  # halo (C, H) u8
             ctypes.c_void_p,  # x (C, T) u8
-            ctypes.c_void_p,  # taps f32, all stages
+            ctypes.c_void_p,  # coefs f32 (fused.kernel_coefs)
             ctypes.c_void_p,  # out (T_out*C*bytes_per_sample,) u8
             ctypes.c_void_p,  # peak f32[1], zeroed
             ctypes.POINTER(DecimParams),
             ctypes.c_void_p,  # cudaStream_t
         ]
         lib.dsd2dxd_fused_decim.restype = ctypes.c_int
+        lib.dsd2dxd_fused_decim_attrs.argtypes = [
+            ctypes.c_int,                     # dynamic shared memory bytes
+            ctypes.POINTER(ctypes.c_int),     # out: blocks/SM, threads, regs, local
+        ]
+        lib.dsd2dxd_fused_decim_attrs.restype = ctypes.c_int
         lib.dsd2dxd_finish_params_size.argtypes = []
         lib.dsd2dxd_finish_params_size.restype = ctypes.c_int
         if lib.dsd2dxd_finish_params_size() != ctypes.sizeof(FinishParams):
@@ -220,6 +264,11 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,  # cudaStream_t
         ]
         lib.dsd2dxd_dma_probe.restype = ctypes.c_int
+        lib.dsd2dxd_probe_params_size.argtypes = []
+        lib.dsd2dxd_probe_params_size.restype = ctypes.c_int
+        if lib.dsd2dxd_probe_params_size() != ctypes.sizeof(ProbeParams):
+            raise RuntimeError("ProbeParams layout differs between "
+                               "kernels.py and csrc/probes.cu")
         lib.dsd2dxd_probe_step.argtypes = [
             ctypes.c_void_p,  # halo (C, H) u8
             ctypes.c_void_p,  # x (C, T) u8
@@ -227,7 +276,7 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,  # out (C, T_out) f32 or i32
             ctypes.c_void_p,  # peak f32[1], zeroed
             ctypes.c_int,     # rung
-            ctypes.POINTER(DecimParams),
+            ctypes.POINTER(ProbeParams),
             ctypes.c_void_p,  # cudaStream_t
         ]
         lib.dsd2dxd_probe_step.restype = ctypes.c_int

@@ -42,6 +42,7 @@ output, big endian for AIFF/AIFC. Dither is Philox4x32-10
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 import threading
 from dataclasses import dataclass
@@ -64,8 +65,13 @@ from dsd2dxd_tpu_torch.ops.plan import (
 from dsd2dxd_tpu_torch.ops.resample import StepConfig, unpack_bits
 
 IDLE_BYTE = 0x69  # DSD silence (alternating ±1)
-MAX_BLOCK_OUT = 512   # output frames per CUDA block, ÷8 to ÷32
-BLOCK_BITS = 1 << 14  # deeper chains: block_out * R stays at this
+# K1's output frames per CUDA block at each depth R: the fastest of
+# tools/blocksweep.py among the blocks that keep 24 warps resident per SM
+# (PERF.md); other depths keep a block's input at BLOCK_BITS bits
+BLOCK_OUT = {8: 2048, 16: 1024, 32: 512, 64: 320, 128: 128}
+BLOCK_BITS = 1 << 14
+S0_VEC = 4            # K1: outputs per thread of stage 0
+GROUP = 4             # K1: stage-0 taps per table
 _DITHER_CODE = {DitherType.NONE: 0, DitherType.TPDF: 1,
                 DitherType.RECTANGULAR: 2, DitherType.FPD: 3}
 _INT_DITHERS = (DitherType.NONE, DitherType.TPDF, DitherType.RECTANGULAR)
@@ -120,10 +126,9 @@ def kernel_modes(chain: Sequence[Stage], bit_depth: int) -> tuple[str, ...]:
 
 
 def block_out_for(chain: Sequence[Stage]) -> int:
-    """Output frames per CUDA block: 512 down to ÷32, then as many as
-    keep the block's stage-0 window at BLOCK_BITS input bits (256 at
-    ÷64, 128 at ÷128), so it fits in shared memory."""
-    return min(MAX_BLOCK_OUT, BLOCK_BITS // decimation(chain))
+    """Output frames per CUDA block of K1 (``BLOCK_OUT``)."""
+    r = decimation(chain)
+    return BLOCK_OUT.get(r, BLOCK_BITS // r)
 
 
 def chain_halo_bytes(chain: Sequence[Stage]) -> int:
@@ -168,8 +173,9 @@ def context_bits(chain: Sequence[Stage]) -> int:
 @dataclass(frozen=True)
 class BlockLayout:
     """Where one group of `block_out` consecutive output frames finds
-    its input, for the kernel (one CUDA block per group and channel) and
-    for the plain version (one group spanning the tile).
+    its input, for the plain version (one group spanning the tile) and
+    for the P2 rungs (``tools/floorstrip.py``, one CUDA block per group
+    and channel; K1's own blocks are ``KernelLayout``).
 
     Frame m0 of the group reads window bytes from m0 * frame_bytes +
     byte_off on (window = halo ++ tile), its stage-0 samples starting at
@@ -325,16 +331,139 @@ def _gain32(cfg: StepConfig) -> float:
     return float(np.float32(10.0 ** (cfg.level_db / 20.0)))
 
 
-def _smem(lay: BlockLayout) -> tuple[int, int, int]:
-    """(buf_a, buf_b, smem_bytes): taps, then buffer A (stage 0's whole
-    bytes and the inputs of stages 2, 4, ...), then buffer B (stages 1,
-    3, ...), in f32 slots of the kernel's dynamic shared memory."""
-    n_taps_total = sum(lay.n_taps)
-    in_len = lay.in_len
-    a_len = max([lay.n_load_bytes * 8] + list(in_len[2::2]))
-    b_len = max([0] + list(in_len[1::2]))
-    return (n_taps_total, n_taps_total + a_len,
-            4 * (n_taps_total + a_len + b_len))
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _chunks(n_taps: int) -> int:
+    """float4 chunks of each polyphase half a K1 thread reads for its
+    kernels.VEC outputs of a ÷2 stage of n_taps taps."""
+    return (kernels.VEC - 1 + (n_taps - 1) // 2) // 4 + 1
+
+
+@dataclass(frozen=True)
+class KernelLayout:
+    """One CUDA block of K1 (``csrc/fused_decim.cu``): `block_out` output
+    frames of one channel, from its own window of packed bits.
+
+    The block of frame m0 copies window bytes m0 * frame_bytes + byte_off
+    on (n_load_bytes of them; window = halo ++ tile) to shared memory as
+    big-endian u32 words, bits MSB-first. Stage 0's taps are zero-padded
+    to 4 * n_groups; its output j reads the 4 * n_groups bits from bit
+    bit_off + decim[0] * j of that span on, tap k the (4 n_groups - 1 -
+    k)-th, a group of 4 taps through a 16-entry table of its subtree sums
+    (``stage0_tables``). Stage s computes n_out[s] outputs (a whole number
+    of per-thread vectors: S0_VEC at stage 0, kernels.VEC after; the last
+    stage's are block_out and then some). Stage s >= 1 is ÷2 and reads its
+    input x in two polyphase halves of half[s] floats each (x[2i], then
+    x[2i+1]), which stage s - 1 writes; the last stage writes its outputs
+    in order. Shared memory (f32 slots): the coefficients (n_coefs
+    floats: the tables, then each later stage's taps padded to 4, from
+    the first 64-byte boundary of a region 16 floats longer), the window
+    words, buffer A (the outputs of stages 0, 2, ...) and buffer B
+    (stages 1, 3, ...).
+    """
+
+    block_out: int
+    frame_bytes: int
+    byte_off: int
+    bit_off: int
+    n_load_bytes: int
+    n_groups: int
+    n_taps: tuple[int, ...]
+    decim: tuple[int, ...]
+    n_out: tuple[int, ...]
+    half: tuple[int, ...]  # 0 at stage 0
+    n_coefs: int
+    win_words: int
+    a_len: int
+    b_len: int
+
+    @property
+    def out_floats(self) -> tuple[int, ...]:
+        """Floats each stage's output takes in its buffer."""
+        return tuple(2 * h for h in self.half[1:]) + (self.n_out[-1],)
+
+    @property
+    def tap_off(self) -> tuple[int, ...]:
+        """Offset of each stage's taps among the coefficients (stage 0:
+        its tables, at 0)."""
+        offs, off = [0], 16 * self.n_groups
+        for n in self.n_taps[1:]:
+            offs.append(off)
+            off += _up(n, 4)
+        return tuple(offs)
+
+    @property
+    def win(self) -> int:
+        """f32 offset of the window words (after the coefficients'
+        region)."""
+        return self.n_coefs + 16
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * (self.win + self.win_words + self.a_len + self.b_len)
+
+
+def kernel_layout(chain: Sequence[Stage], halo_bytes: int,
+                  block_out: int) -> KernelLayout:
+    n_taps = tuple(s.n_taps for s in chain)
+    decim = tuple(s.M for s in chain)
+    last = len(chain) - 1
+    vec = kernels.VEC
+    n_out = [_up(block_out, vec if last else S0_VEC)]
+    for s in range(last, 0, -1):
+        need = (n_out[0] - 1) * decim[s] + n_taps[s]
+        n_out.insert(0, _up(need, vec if s > 1 else S0_VEC))
+    half = [0]
+    for s in range(1, last + 1):
+        read = 4 * (n_out[s] // vec - 1 + _chunks(n_taps[s]))
+        half.append(_up(max(-(-n_out[s - 1] // 2), read), 4))
+    n_groups = -(-n_taps[0] // GROUP)
+    off0 = -context_bits(chain) - (GROUP * n_groups - n_taps[0])
+    byte0, bit_off = divmod(off0, 8)  # floor division: byte0 < 0
+    if halo_bytes + byte0 < 0:
+        raise ValueError(f"halo of {halo_bytes} bytes is shorter than the "
+                         f"chain's {-off0}-bit context")
+    n_load = -(-(bit_off + decim[0] * (n_out[0] - 1) + GROUP * n_groups) // 8)
+    lay = KernelLayout(
+        block_out=block_out, frame_bytes=math.prod(decim) // 8,
+        byte_off=halo_bytes + byte0, bit_off=bit_off, n_load_bytes=n_load,
+        n_groups=n_groups, n_taps=n_taps, decim=decim, n_out=tuple(n_out),
+        half=tuple(half),
+        n_coefs=16 * n_groups + sum(_up(n, 4) for n in n_taps[1:]),
+        # the copy starts up to 15 bytes early (16-byte loads), and a
+        # stage-0 read takes the word after the last it needs
+        win_words=4 * (-(-(15 + n_load) // 16) + 1), a_len=0, b_len=0)
+    outs = lay.out_floats
+    return dataclasses.replace(lay, a_len=max(outs[0::2]),
+                               b_len=max([0] + list(outs[1::2])))
+
+
+def stage0_tables(taps0: torch.Tensor) -> torch.Tensor:
+    """(n_groups, 16) f32 tables of stage 0: entry v of group g is the
+    pairwise subtree sum (h0 + h1) + (h2 + h3) of the products
+    h_i = h[4g + i] * (+1 if bit i of v else -1), the taps zero-padded
+    to a multiple of 4. The products are exact, so the entry is the tree
+    sum of those four products, and a stage-0 output is the tree sum of
+    its groups' entries (``plan.tree_sum`` over the padded taps)."""
+    h = taps0.detach().to("cpu", torch.float32)
+    q = -(-h.numel() // GROUP)
+    h = torch.cat([h, h.new_zeros(GROUP * q - h.numel())]).view(q, 1, GROUP)
+    bits = (torch.arange(16).view(16, 1) >> torch.arange(GROUP)) & 1
+    p = h * torch.where(bits == 1, 1.0, -1.0)  # (q, 16, 4)
+    return (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])
+
+
+def kernel_coefs(chain: Sequence[Stage], device=None) -> torch.Tensor:
+    """K1's coefficients, as ``KernelLayout`` places them: stage 0's
+    tables, then each later stage's f32 taps zero-padded to 4."""
+    taps = [p.taps for p in params_from_chain(chain)]
+    parts = [stage0_tables(taps[0]).reshape(-1)]
+    for t in taps[1:]:
+        parts.append(torch.cat([t, t.new_zeros(_up(t.numel(), 4)
+                                               - t.numel())]))
+    return torch.cat(parts).to(device)
 
 
 def check_epilogue(cfg: StepConfig) -> None:
@@ -354,6 +483,9 @@ def check_step_config(chain: Sequence[Stage], cfg: StepConfig) -> None:
         raise ConfigError(f"the fused kernel covers pure ÷2^k chains (L=1, "
                           f"÷8 and deeper, <= {kernels.MAX_STAGES} stages "
                           f"of < 256 taps) only")
+    if any(s.M != 2 for s in chain[1:]):
+        raise ConfigError("the fused kernel's stages after the first are "
+                          "÷2 only")
     check_epilogue(cfg)
     halo = chain_halo_bytes(chain)
     if cfg.tile_bytes < halo:
@@ -367,9 +499,8 @@ def check_step_config(chain: Sequence[Stage], cfg: StepConfig) -> None:
 def _kernel_params(chain, cfg: StepConfig, halo_bytes: int, tile_key: int,
                    big_endian: bool, n_valid: int, planar: bool = False,
                    block_out: Optional[int] = None) -> kernels.DecimParams:
-    """The kernel's DecimParams; `block_out` overrides block_out_for
-    (the floor probes sweep it)."""
-    lay = block_layout(chain, halo_bytes, block_out or block_out_for(chain))
+    """The kernel's DecimParams; `block_out` overrides block_out_for."""
+    lay = kernel_layout(chain, halo_bytes, block_out or block_out_for(chain))
     p = kernels.DecimParams()
     p.n_stages = len(chain)
     p.channels = cfg.channels
@@ -382,15 +513,18 @@ def _kernel_params(chain, cfg: StepConfig, halo_bytes: int, tile_key: int,
     p.byte_off = lay.byte_off
     p.bit_off = lay.bit_off
     p.n_load_bytes = lay.n_load_bytes
-    p.n_taps_total = sum(lay.n_taps)
-    p.buf_a, p.buf_b, p.smem_bytes = _smem(lay)
-    off = 0
-    for s in range(len(chain)):
+    p.n_groups = lay.n_groups
+    p.decim0 = lay.decim[0]
+    p.n_coefs = lay.n_coefs
+    p.win = lay.win
+    p.buf_a = p.win + lay.win_words
+    p.buf_b = p.buf_a + lay.a_len
+    p.smem_bytes = lay.smem_bytes
+    for s, off in enumerate(lay.tap_off):
         p.n_taps[s] = lay.n_taps[s]
-        p.decim[s] = lay.decim[s]
         p.tap_off[s] = off
-        p.out_len[s] = lay.out_len[s]
-        off += lay.n_taps[s]
+        p.n_out[s] = lay.n_out[s]
+        p.half[s] = lay.half[s]
     gain = _gain32(cfg)
     p.gain = gain
     p.apply_gain = int(gain != 1.0)
@@ -404,16 +538,23 @@ def _kernel_params(chain, cfg: StepConfig, halo_bytes: int, tile_key: int,
 
 
 def _launch_decim(x_u8: torch.Tensor, halo: torch.Tensor,
-                  taps_flat: torch.Tensor, out: torch.Tensor,
+                  coefs: torch.Tensor, out: torch.Tensor,
                   peak: Optional[torch.Tensor], params: kernels.DecimParams,
                   modes: Sequence[str]) -> None:
     """Launch fused_decim on the current stream, raise if the launch
     fails, else count it under `modes`."""
     global KERNEL_LAUNCHES
+    if (coefs.dtype != torch.float32 or coefs.numel() != params.n_coefs
+            or not coefs.is_contiguous() or coefs.data_ptr() % 16
+            or coefs.device != x_u8.device):
+        raise ValueError(f"want the chain's {params.n_coefs} f32 "
+                         f"coefficients (kernel_coefs), contiguous and "
+                         f"16-byte aligned on {x_u8.device}, got "
+                         f"{coefs.dtype}{tuple(coefs.shape)}@{coefs.device}")
     lib = kernels.load()
     stream = torch.cuda.current_stream(x_u8.device).cuda_stream
     rc = lib.dsd2dxd_fused_decim(
-        halo.data_ptr(), x_u8.data_ptr(), taps_flat.data_ptr(),
+        halo.data_ptr(), x_u8.data_ptr(), coefs.data_ptr(),
         out.data_ptr(), None if peak is None else peak.data_ptr(),
         ctypes.byref(params), stream)
     if rc != 0:
@@ -426,11 +567,12 @@ def _launch_decim(x_u8: torch.Tensor, halo: torch.Tensor,
 
 
 def fused_decim_cuda(x_u8: torch.Tensor, halo: torch.Tensor, tile_key: int,
-                     taps_flat: torch.Tensor, chain: Sequence[Stage],
+                     coefs: torch.Tensor, chain: Sequence[Stage],
                      cfg: StepConfig, big_endian: bool = False,
                      n_valid: Optional[int] = None,
                      block_out: Optional[int] = None):
-    """Launch the kernel on the current stream. Same contract as
+    """Launch the kernel on the current stream, with the chain's
+    ``kernel_coefs`` on the card. Same contract as
     ``fused_decim_reference``; raises if the launch fails."""
     c, t = x_u8.shape
     t_out = t * 8 // decimation(chain)
@@ -440,19 +582,20 @@ def fused_decim_cuda(x_u8: torch.Tensor, halo: torch.Tensor, tile_key: int,
     peak = torch.zeros(1, dtype=torch.float32, device=x_u8.device)
     params = _kernel_params(chain, cfg, halo.shape[1], tile_key, big_endian,
                             n, block_out=block_out)
-    _launch_decim(x_u8, halo, taps_flat, out, peak, params,
+    _launch_decim(x_u8, halo, coefs, out, peak, params,
                   kernel_modes(chain, cfg.bit_depth))
     new_halo = x_u8[:, t - halo.shape[1]:].clone()
     return out, peak[0], new_halo
 
 
 def fused_head_cuda(x_u8: torch.Tensor, halo: torch.Tensor,
-                    taps_flat: torch.Tensor,
+                    coefs: torch.Tensor,
                     chain: Sequence[Stage]) -> torch.Tensor:
-    """K1e: launch the kernel in its planar mode on the current stream:
-    (C, T_out) f32, the gain-1 undithered cascade output of the tile (no
-    peak). Same result as ``fused_decim_cascade(x_u8, halo, taps, chain,
-    1.0)``; raises if the launch fails."""
+    """K1e: launch the kernel in its planar mode on the current stream,
+    with the chain's ``kernel_coefs`` on the card: (C, T_out) f32, the
+    gain-1 undithered cascade output of the tile (no peak). Same result
+    as ``fused_decim_cascade(x_u8, halo, taps, chain, 1.0)``; raises if
+    the launch fails."""
     c, t = x_u8.shape
     t_out = t * 8 // decimation(chain)
     out = torch.empty((c, t_out), dtype=torch.float32, device=x_u8.device)
@@ -460,8 +603,25 @@ def fused_head_cuda(x_u8: torch.Tensor, halo: torch.Tensor,
                      dither=DitherType.NONE, level_db=0.0)
     params = _kernel_params(chain, cfg, halo.shape[1], 0, False, t_out,
                             planar=True)
-    _launch_decim(x_u8, halo, taps_flat, out, None, params, ("K1e",))
+    _launch_decim(x_u8, halo, coefs, out, None, params, ("K1e",))
     return out
+
+
+def kernel_occupancy(chain: Sequence[Stage],
+                     block_out: Optional[int] = None) -> dict:
+    """K1 on the card at `chain`'s layout: shared memory per block,
+    resident blocks and warps per SM (cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor), registers per thread and local (stack) bytes per
+    thread (cudaFuncGetAttributes)."""
+    lay = kernel_layout(chain, chain_halo_bytes(chain),
+                        block_out or block_out_for(chain))
+    res = (ctypes.c_int * 4)()
+    rc = kernels.load().dsd2dxd_fused_decim_attrs(lay.smem_bytes, res)
+    if rc != 0:
+        raise RuntimeError(f"fused_decim attributes: CUDA error {rc}")
+    return {"smem_bytes": lay.smem_bytes, "blocks_per_sm": res[0],
+            "warps_per_sm": res[0] * res[1] // 32, "regs": res[2],
+            "local_bytes": res[3]}
 
 
 def finish_cuda(z: torch.Tensor, gain: float, tile_key: int,
@@ -520,7 +680,7 @@ def make_fused_step(chain: Sequence[Stage], cfg: StepConfig, device,
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     taps = [p.taps.to(device) for p in params_from_chain(chain)]
-    taps_flat = torch.cat(taps)
+    coefs = kernel_coefs(chain, device)
 
     def step(x_u8: torch.Tensor, halo: torch.Tensor, tile_key: int,
              n_valid: Optional[int] = None):
@@ -537,7 +697,7 @@ def make_fused_step(chain: Sequence[Stage], cfg: StepConfig, device,
         if x_u8.device != device:
             raise ValueError(f"step built for {device}, got {x_u8.device}")
         if x_u8.is_cuda:
-            return fused_decim_cuda(x_u8, halo, tile_key, taps_flat, chain,
+            return fused_decim_cuda(x_u8, halo, tile_key, coefs, chain,
                                     cfg, big_endian, n_valid, block_out)
         if x_u8.device.type == "cpu":
             return fused_decim_reference(x_u8, halo, tile_key, taps, chain,

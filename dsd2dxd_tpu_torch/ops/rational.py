@@ -170,7 +170,7 @@ def make_rational_step(chain: Sequence[Stage], cfg: StepConfig, device,
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     taps = [p.taps.to(device) for p in params_from_chain(head)]
-    taps_flat = torch.cat(taps)
+    coefs = fused.kernel_coefs(head, device)
     band_t = torch.from_numpy(rp.band.T.copy()).to(device)
     gain = fused._gain32(cfg)
     hist_shape = (cfg.channels, rp.p_in)
@@ -195,7 +195,7 @@ def make_rational_step(chain: Sequence[Stage], cfg: StepConfig, device,
         if x_u8.device != device:
             raise ValueError(f"step built for {device}, got {x_u8.device}")
         if x_u8.is_cuda:
-            y = fused.fused_head_cuda(x_u8, halo, taps_flat, head)
+            y = fused.fused_head_cuda(x_u8, halo, coefs, head)
             z, new_hist = rational_tail(y, hist, band_t, rp.nhist)
             wire, peak = fused.finish_cuda(z, gain, tile_key, cfg,
                                            big_endian, n_valid)

@@ -26,7 +26,7 @@ parity tests). ``dma_probe_reference`` is the plain version; noflush's
 returns every block's values (the card's blocks run in no order, so each
 element of its output block is some block's; the TPU's is the last's).
 
-    python -m dsd2dxd_tpu_torch.tools.dmabench [--blocks 512,1024,2048,8192]
+    python -m dsd2dxd_tpu_torch.tools.dmabench [--blocks 2048,2560,10240]
         [--tile-mib 16] [--reps 8] [--modes ...]
     python -m dsd2dxd_tpu_torch.tools.dmabench --device cpu
 
@@ -226,8 +226,8 @@ def k1_blocks() -> list[tuple[int, int]]:
                 if fused.decimation(chain) is None:
                     continue
                 bo = fused.block_out_for(chain)
-                lay = fused.block_layout(chain, fused.chain_halo_bytes(chain),
-                                         bo)
+                lay = fused.kernel_layout(chain,
+                                          fused.chain_halo_bytes(chain), bo)
                 bb = bo * lay.frame_bytes
                 over = -(-(lay.n_load_bytes - bb) // 16) * 16
                 halo[bb] = max(halo.get(bb, 0), over)

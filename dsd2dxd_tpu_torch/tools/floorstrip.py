@@ -2,10 +2,13 @@
 
 Counterpart of the JAX package's ``tools/floorstrip.py`` (its Pallas probe
 ``_probe_step`` and its main), on ``synth_chain(0.0)``: six ÷2 stages of
-2 taps, the DSD512 -> 352.8k structure, at 24-bit TPDF. Each rung is K1 on
-the same ``DecimParams``, window load and cascade (``csrc/decim_body.cuh``)
-stopped at a later point (``csrc/probes.cu``, ``probe_step_kernel``), so
-the increment from one rung to the next is one part of K1's time:
+2 taps, the DSD512 -> 352.8k structure, at 24-bit TPDF. Each rung is one
+body, K1's as it was before its redesign for Hopper (byte loads, the
+window unpacked to ±1 f32 in shared memory, one FIR routine for every
+stage; ``probe_params``, ``PROBE_BLOCK_BITS``), stopped at a later point
+(``csrc/probes.cu``, ``probe_step_kernel``), so the increment from one
+rung to the next is one part of its time; ``full`` is the redesigned K1,
+so quant beside full is the old body beside the new one in one run:
 
   dma     load the block's window (K1's byte loads) to shared memory; store
           the block's first bytes as f32, the cheapest dependent store
@@ -25,7 +28,8 @@ the increment from one rung to the next is one part of K1's time:
   cas0    + the real cascade and the peak over the first n_valid frames;
           planar f32 out at gain 1 (K1e's output)
   quant   + K1's epilogue at 24 bit (dither, rint, clip), int32 out
-  full    the production step, ``ops/fused.make_fused_step`` (wire bytes)
+  full    the production step, ``ops/fused.make_fused_step`` (wire bytes),
+          at the ladder's block_out
 
 ``probe_step_reference`` is the plain version of every rung but full
 (cas0 and quant reuse ``fused_decim_cascade`` and ``epilogue_words``;
@@ -85,6 +89,64 @@ def reset_launch_counts() -> None:
             LAUNCHES[r] = 0
 
 
+PROBE_BLOCK_BITS = 1 << 14  # block_out * R of the rungs beyond ÷32
+
+
+def probe_block_out(chain: Sequence[Stage]) -> int:
+    """The rungs' output frames per block: 512 down to ÷32, then
+    PROBE_BLOCK_BITS // R (256 at ÷64), so the unpacked window fits in
+    shared memory."""
+    return min(512, PROBE_BLOCK_BITS // fused.decimation(chain))
+
+
+def _smem(lay: fused.BlockLayout) -> tuple[int, int, int]:
+    """(buf_a, buf_b, smem_bytes): taps, then buffer A (stage 0's whole
+    bytes unpacked and the inputs of stages 2, 4, ...), then buffer B
+    (stages 1, 3, ...), in f32 slots of the rung's dynamic shared
+    memory."""
+    n_taps_total = sum(lay.n_taps)
+    in_len = lay.in_len
+    a_len = max([lay.n_load_bytes * 8] + list(in_len[2::2]))
+    b_len = max([0] + list(in_len[1::2]))
+    return (n_taps_total, n_taps_total + a_len,
+            4 * (n_taps_total + a_len + b_len))
+
+
+def probe_params(chain, cfg: StepConfig, halo_bytes: int, tile_key: int,
+                 n_valid: int, block_out: int) -> kernels.ProbeParams:
+    """The rungs' ProbeParams: ``fused.block_layout`` at `block_out`,
+    every rung at gain 1, K1's epilogue fields."""
+    lay = fused.block_layout(chain, halo_bytes, block_out)
+    p = kernels.ProbeParams()
+    p.n_stages = len(chain)
+    p.channels = cfg.channels
+    p.tile_bytes = cfg.tile_bytes
+    p.tile_frames = cfg.tile_bytes // lay.frame_bytes
+    p.frame_bytes = lay.frame_bytes
+    p.n_valid = n_valid
+    p.halo_bytes = halo_bytes
+    p.block_out = lay.block_out
+    p.byte_off = lay.byte_off
+    p.bit_off = lay.bit_off
+    p.n_load_bytes = lay.n_load_bytes
+    p.n_taps_total = sum(lay.n_taps)
+    p.buf_a, p.buf_b, p.smem_bytes = _smem(lay)
+    off = 0
+    for s in range(len(chain)):
+        p.n_taps[s] = lay.n_taps[s]
+        p.decim[s] = lay.decim[s]
+        p.tap_off[s] = off
+        p.out_len[s] = lay.out_len[s]
+        off += lay.n_taps[s]
+    p.gain = 1.0
+    p.apply_gain = 0
+    p.bit_depth = cfg.bit_depth
+    p.dither = fused._DITHER_CODE[cfg.dither]
+    p.key0 = tile_key & 0xFFFFFFFF
+    p.key1 = (tile_key >> 32) & 0xFFFFFFFF
+    return p
+
+
 def _windows(x_u8: torch.Tensor, halo: torch.Tensor,
              lay: fused.BlockLayout, n_blocks: int) -> torch.Tensor:
     """(C, n_blocks, n_load_bytes) u8: the bytes each kernel block loads
@@ -128,7 +190,7 @@ def probe_step_reference(x_u8: torch.Tensor, halo: torch.Tensor,
     dma and unpack."""
     if rung not in KERNEL_RUNGS:
         raise ValueError(f"no probe kernel for rung {rung!r}")
-    bo = block_out or fused.block_out_for(chain)
+    bo = block_out or probe_block_out(chain)
     lay = fused.block_layout(chain, halo.shape[1], bo)
     c, t = x_u8.shape
     t_out = t // lay.frame_bytes
@@ -166,9 +228,8 @@ def probe_step_cuda(x_u8: torch.Tensor, halo: torch.Tensor,
     out = torch.empty((c, t_out), device=x_u8.device,
                       dtype=torch.int32 if rung == "quant" else torch.float32)
     peak = torch.zeros(1, dtype=torch.float32, device=x_u8.device)
-    p = fused._kernel_params(chain, cfg, halo.shape[1], tile_key, False, n,
-                             block_out=block_out)
-    p.apply_gain = 0  # every rung at gain 1
+    p = probe_params(chain, cfg, halo.shape[1], tile_key, n,
+                     block_out or probe_block_out(chain))
     lib = kernels.load()
     stream = torch.cuda.current_stream(x_u8.device).cuda_stream
     rc = lib.dsd2dxd_probe_step(halo.data_ptr(), x_u8.data_ptr(),
@@ -216,7 +277,7 @@ def probe_config(tile_mib: float, block_out: Optional[int] = None):
     """(chain, cfg, block_out) of the ladder: synth_chain(0.0) at 24-bit
     TPDF, level 0, two channels, a tile of whole blocks near tile_mib."""
     chain = synth_chain(0.0)
-    bo = block_out or fused.block_out_for(chain)
+    bo = block_out or probe_block_out(chain)
     unit = bo * fused.decimation(chain) // 8
     tile = max(1, int(tile_mib * 1024 * 1024) // unit) * unit
     cfg = StepConfig(channels=CHANNELS, tile_bytes=tile, bit_depth=24,
@@ -285,11 +346,13 @@ def main(argv=None) -> dict:
         print(f"  {r:7s} {us:8.4f} us/16KiB  ({us - prev:+8.4f})  "
               f"[{xrt:8.0f}x DSD512RT]")
         prev = us
-    print("increments: unpack-dma = the unpack to ±1 f32 and an aligned "
-          "sum; cas0a-unpack = the cascade with conflict-free stride-1 "
-          "reads; cas0-cas0a = the real stride-2 reads' bank conflicts; "
+    print("increments (the rungs are K1's body before its redesign): "
+          "unpack-dma = the unpack to ±1 f32 and an aligned sum; "
+          "cas0a-unpack = the cascade with conflict-free stride-1 reads; "
+          "cas0-cas0a = the real stride-2 reads' bank conflicts; "
           "quant-cas0 = dither + quantize (int32 store); full-quant = the "
-          "wire word's byte stores against one int32 store.")
+          "redesigned K1 (packed window, stage 0 through tap tables, "
+          "unrolled ÷2 stages, wire bytes) against the old body.")
     return {"tile": tile, "block_out": bo, "chain": chain, "cfg": cfg,
             "ms": times, "med_ms": med}
 

@@ -118,6 +118,70 @@ def test_every_epilogue_matches_plain_on_card(cuda_device, cell, tile):
     _check_against_plain(cuda_device, chain, _ragged(chain, tile), EPILOGUES)
 
 
+@pytest.mark.parametrize("cell,block_out", [
+    ("E", 37), ("D", 45), ("D", 512), ("div16", 101), ("div32", 63),
+    ("div64", 129), ("div64", 200), ("div128", 77)])
+def test_kernel_at_odd_block_out_bit_equal_on_card(cuda_device, cell,
+                                                   block_out):
+    """K1 at a block_out of its own (ragged blocks; D: the single ÷8
+    stage of 96 taps, stage 0's table route straight into the epilogue)
+    against its plain version at f32 NONE, bit-equal, two streamed
+    tiles, one ragged in its last block."""
+    chain = get_chain(*{**CELLS, **DEEP}[cell])
+    fb = fused.decimation(chain) // 8
+    tile = block_out * fb * 7 // 2 // fb * fb
+    cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=32,
+                     dither=DitherType.NONE, level_db=-1.5)
+    taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32),
+                         device=cuda_device) for s in chain]
+    coefs = fused.kernel_coefs(chain, cuda_device)
+    rng = np.random.default_rng(37)
+    h = fused.init_fused_halo(chain, 2, cuda_device)
+    for _ in range(2):
+        x = torch.from_numpy(rng.integers(0, 256, (2, tile),
+                                          dtype=np.uint8)).to(cuda_device)
+        wk, pk, hk = fused.fused_decim_cuda(x, h, 3, coefs, chain, cfg,
+                                            block_out=block_out)
+        wr, pr, _hr = fused.fused_decim_reference(x, h, 3, taps, chain, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(wk, wr)
+        assert float(pk) == float(pr)
+        h = hk
+
+
+@pytest.mark.parametrize("scale", [0.0, 0.5])
+def test_kernel_generic_tap_counts_on_card(cuda_device, scale):
+    """synth_chain(0.5) has tap counts (8, 8, 10, 8, 8, 28) outside the
+    kernel's compiled cases, so its stages take the generic loops; (0.0)
+    the 2-tap case. Bit-equal to the plain cascade at gain 1 (K1e's
+    planar mode)."""
+    from dsd2dxd_tpu_torch.tools import synth_chain
+
+    chain = synth_chain(scale)
+    taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32),
+                         device=cuda_device) for s in chain]
+    coefs = fused.kernel_coefs(chain, cuda_device)
+    rng = np.random.default_rng(38)
+    x = torch.from_numpy(rng.integers(0, 256, (2, 8 * 1000),
+                                      dtype=np.uint8)).to(cuda_device)
+    h = torch.from_numpy(rng.integers(
+        0, 256, (2, fused.chain_halo_bytes(chain)),
+        dtype=np.uint8)).to(cuda_device)
+    yk = fused.fused_head_cuda(x, h, coefs, chain)
+    yr = fused.fused_decim_cascade(x, h, taps, chain, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(yk, yr)
+
+
+def test_kernel_occupancy_on_card(cuda_device):
+    """K1 at ÷64 and ÷128 keeps at least 24 warps resident per SM, with
+    no local memory (no spills, no stack)."""
+    for cell in ("div64", "div128"):
+        occ = fused.kernel_occupancy(get_chain(*DEEP[cell]))
+        assert occ["warps_per_sm"] >= 24, (cell, occ)
+        assert occ["local_bytes"] == 0, (cell, occ)
+
+
 def test_mode_counts_on_card(cuda_device):
     chain = get_chain(*DEEP["div64"])
     cfg = StepConfig(channels=2, tile_bytes=8192, bit_depth=20,
@@ -243,7 +307,7 @@ def test_head_kernel_bit_equal_on_card(cuda_device, key):
     head = chain[:rp.n_head]
     taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32),
                          device=cuda_device) for s in head]
-    flat = torch.cat(taps)
+    coefs = fused.kernel_coefs(head, cuda_device)
     tile = rp.unit_bits // 8 * 3
     rng = np.random.default_rng(31)
     h = fused.init_fused_halo(head, 2, cuda_device)
@@ -251,7 +315,7 @@ def test_head_kernel_bit_equal_on_card(cuda_device, key):
         x = torch.from_numpy(rng.integers(0, 256, (2, tile),
                                           dtype=np.uint8)).to(cuda_device)
         before = fused.MODE_LAUNCHES["K1e"]
-        yk = fused.fused_head_cuda(x, h, flat, head)
+        yk = fused.fused_head_cuda(x, h, coefs, head)
         assert fused.MODE_LAUNCHES["K1e"] == before + 1
         yr = fused.fused_decim_cascade(x, h, taps, head, 1.0)
         torch.cuda.synchronize()

@@ -29,7 +29,7 @@ from dsd2dxd_tpu_torch import kernels
 from dsd2dxd_tpu_torch.filters.design import chain_ratio, get_chain
 from dsd2dxd_tpu_torch.formats.dsd_types import DitherType, DsdRate, FilterType
 from dsd2dxd_tpu_torch.ops import fused as tfused
-from dsd2dxd_tpu_torch.ops import philox
+from dsd2dxd_tpu_torch.ops import philox, rational
 from dsd2dxd_tpu_torch.ops.plan import state_from_jax, tree_sum
 from dsd2dxd_tpu_torch.ops.resample import StepConfig
 from dsd2dxd_tpu_torch.utils.errors import ConfigError
@@ -183,26 +183,54 @@ def test_streaming_equals_one_long_tile():
 
 
 def _emulate_kernel_cascade(x, halo, chain, gain, block_out):
-    """The CUDA kernel's blocking, in torch: each (block, channel) loads
-    only the bytes `block_layout` names and runs the stages on its own
-    buffers. Must equal the plain cascade bit for bit."""
+    """K1's block route in torch, as the kernel takes it: each (block,
+    channel) copies the bytes `kernel_layout` names as big-endian words
+    (from up to 15 bytes early when the window lies inside the tile, as
+    the kernel's 16-byte copy does from an aligned address: here an offset
+    that varies by block), stage 0 reads each output's bits through a
+    funnel shift and its tap groups through `stage0_tables`, summed
+    pairwise, and each ÷2 stage computes its n_out outputs. Must equal the
+    plain cascade bit for bit."""
     c, t = x.shape
-    lay = tfused.block_layout(chain, halo.shape[1], block_out)
-    t_out = t // lay.frame_bytes
-    window = torch.cat([halo, x], dim=1)
-    idle = torch.full((c, lay.n_load_bytes + block_out * lay.frame_bytes),
-                      tfused.IDLE_BYTE, dtype=torch.uint8)
-    window = torch.cat([window, idle], dim=1)  # reads past the end: idle
+    hb = halo.shape[1]
+    lay = tfused.kernel_layout(chain, hb, block_out)
+    fb, n_load, q = lay.frame_bytes, lay.n_load_bytes, lay.n_groups
+    t_out = t // fb
+    idle = torch.full((c, n_load + block_out * fb + 32), tfused.IDLE_BYTE,
+                      dtype=torch.uint8)
+    window = torch.cat([torch.zeros((c, 16), dtype=torch.uint8), halo, x,
+                        idle], dim=1)  # 16 bytes before the halo: unread
     taps = _taps(chain)
+    tables = tfused.stage0_tables(taps[0])
+    assert tables.shape == (q, 16)
     y = torch.empty(c, t_out)
-    for m0 in range(0, t_out, block_out):
-        wb = m0 * lay.frame_bytes + lay.byte_off
-        v = tfused.unpack_bits(window[:, wb:wb + lay.n_load_bytes])
-        v = v[:, lay.bit_off:]
-        for tp, n, m, o in zip(taps, lay.n_taps, lay.decim, lay.out_len):
-            assert v.shape[1] >= (o - 1) * m + n
-            hk = tp.tolist()
-            v = tree_sum(v[:, n - 1 - k:n - 1 - k + (o - 1) * m + 1:m] * hk[k]
+    for blk, m0 in enumerate(range(0, t_out, block_out)):
+        wb0 = m0 * fb + lay.byte_off
+        inside = wb0 >= hb and wb0 + n_load <= hb + t
+        s = (3 + 5 * blk) % 16 if inside else 0
+        raw = window[:, 16 + wb0 - s:16 + wb0 - s + s + n_load + 3]
+        raw = raw[:, :(raw.shape[1] // 4) * 4].to(torch.int64)
+        words = ((raw[:, 0::4] << 24) | (raw[:, 1::4] << 16)
+                 | (raw[:, 2::4] << 8) | raw[:, 3::4])
+        words = torch.cat([words, torch.zeros((c, 4), dtype=torch.int64)],
+                          dim=1)
+        pos = 8 * s + lay.bit_off + lay.decim[0] * torch.arange(lay.n_out[0])
+        chunks = []
+        for ci in range(-(-4 * q // 32)):
+            p = pos + 32 * ci
+            sh = p & 31
+            chunks.append(((words[:, p >> 5] << sh)
+                           | (words[:, (p >> 5) + 1] >> (32 - sh)))
+                          & 0xFFFFFFFF)
+        v = tree_sum(
+            tables[g][(chunks[(q - 1 - g) >> 3]
+                       >> (28 - 4 * ((q - 1 - g) & 7))) & 15]
+            for g in range(q))
+        for s_i in range(1, len(chain)):
+            n, o = lay.n_taps[s_i], lay.n_out[s_i]
+            assert v.shape[1] == lay.n_out[s_i - 1] >= 2 * (o - 1) + n
+            hk = taps[s_i].tolist()
+            v = tree_sum(v[:, n - 1 - k:n - 1 - k + 2 * (o - 1) + 1:2] * hk[k]
                          for k in range(n))
         n_keep = min(block_out, t_out - m0)
         y[:, m0:m0 + n_keep] = v[:, :n_keep] * gain if gain != 1.0 \
@@ -210,9 +238,23 @@ def _emulate_kernel_cascade(x, halo, chain, gain, block_out):
     return y
 
 
+CHAINS_48K = [(FilterType.EQUIRIPPLE, rate, out)
+              for rate in (DsdRate.DSD64, DsdRate.DSD128, DsdRate.DSD256)
+              for out in (96000, 192000, 384000)]
+
+
+def _head(key):
+    """The chain K1 runs for a key: the whole chain, or a 48k chain's
+    ÷2^k head."""
+    chain = get_chain(*key)
+    n = rational.rational_head_len(chain)
+    return chain if n is None else chain[:n]
+
+
 def _more_layout_cases():
     """Every other chain of the 20 at its kernel block, two and a half
-    blocks per tile (ragged last block); three at a block of their own."""
+    blocks per tile (ragged last block); three at a block of their own;
+    the 9 48k heads at their block and at an odd one."""
     cases = []
     for key in ALL_CHAINS:
         if key in (E64, X64, D64, E128):
@@ -225,18 +267,29 @@ def _more_layout_cases():
     for key, tile, bo in [(E64_176, 1000, 37), (E256_88, 2048, 40),
                           (C128_88, 1536, 9)]:
         cases.append(pytest.param(key, tile, bo, id=f"{_key_id(key)}-{bo}"))
+    for key, tile, bo in [(D64, 3001, 45), (E256_88, 4096, 101),
+                          (E512_352, 2560, 77)]:
+        cases.append(pytest.param(key, tile, bo, id=f"{_key_id(key)}-{bo}"))
+    for key in CHAINS_48K:
+        head = _head(key)
+        r = tfused.decimation(head)
+        bo = tfused.block_out_for(head)
+        cases.append(pytest.param(key, bo * r // 8 * 5 // 2, bo,
+                                  id=f"{_key_id(key)}-head-block"))
+        cases.append(pytest.param(key, 129 * r // 8 * 3, 129,
+                                  id=f"{_key_id(key)}-head-129"))
     return cases
 
 
 @pytest.mark.parametrize("key,tile,block_out", [
-    (E64, 4096, tfused.MAX_BLOCK_OUT),
+    (E64, 4096, 512),
     (X64, 3000, 512),   # ragged last block
     (D64, 2048, 300),
     (E128, 1500, 700),
     *_more_layout_cases(),
 ])
 def test_kernel_block_layout_emulated(key, tile, block_out):
-    chain = get_chain(*key)
+    chain = _head(key)
     x = torch.from_numpy(_tiles(8, 1, tile=tile)[0])
     halo = torch.from_numpy(_tiles(9, 1, tile=tfused.chain_halo_bytes(chain))[0])
     gain = tfused._gain32(_cfg())
@@ -251,28 +304,118 @@ def test_kernel_block_layout_emulated(key, tile, block_out):
     ids=["E", "X", "D", "E128",
          *(_key_id(k) for k in ALL_CHAINS if k not in (E64, X64, D64, E128))])
 def test_kernel_params_fit_shared_memory(key):
+    """K1's DecimParams at the chain's block: the coefficients' region,
+    the window words and buffers A and B follow each other 16-byte aligned;
+    the window holds stage 0's bits with room for the 16-byte copy and
+    the funnel shift's next word; every stage's inputs were computed
+    by the stage before, each buffer holds the outputs it takes and the
+    float4 reads past them; at most 227 KB of shared memory."""
     chain = get_chain(*key)
     halo = tfused.chain_halo_bytes(chain)
-    lay = tfused.block_layout(chain, halo, tfused.block_out_for(chain))
+    lay = tfused.kernel_layout(chain, halo, tfused.block_out_for(chain))
     p = tfused._kernel_params(chain, _cfg(tile=4096), halo,
                               0x1234_5678_9ABC_DEF0, False, 100)
     assert p.byte_off == lay.byte_off >= 0
     assert p.frame_bytes * 8 == tfused.decimation(chain)
     assert p.tile_frames == 4096 // p.frame_bytes and p.n_valid == 100
     assert (p.key0, p.key1) == (0x9ABCDEF0, 0x12345678)
-    assert p.buf_a == p.n_taps_total == sum(s.n_taps for s in chain)
-    for s, n_in in enumerate(lay.in_len):
-        if s == 0:
-            room = p.buf_b - p.buf_a
-            assert room >= lay.n_load_bytes * 8 >= lay.bit_off + n_in
-        elif s % 2:
-            assert p.smem_bytes // 4 - p.buf_b >= n_in
-        else:
-            assert p.buf_b - p.buf_a >= n_in
+    q = p.n_groups
+    assert q == -(-chain[0].n_taps // 4) and p.decim0 == chain[0].M
+    assert p.n_coefs == tfused.kernel_coefs(chain).numel() == 16 * q + sum(
+        -(-s.n_taps // 4) * 4 for s in chain[1:])
+    assert p.win == p.n_coefs + 16 and p.buf_a == p.win + lay.win_words
+    assert p.buf_b == p.buf_a + lay.a_len
+    assert p.smem_bytes == lay.smem_bytes == 4 * (p.buf_b + lay.b_len)
+    assert all(v % 4 == 0 for v in (p.win, p.buf_a, p.buf_b, *lay.half))
+    end0 = lay.bit_off + chain[0].M * (lay.n_out[0] - 1) + 4 * q
+    assert 8 * lay.n_load_bytes >= end0 > 8 * (lay.n_load_bytes - 1)
+    assert 4 * lay.win_words >= -(-(15 + lay.n_load_bytes) // 16) * 16 + 4
+    assert lay.n_out[0] % tfused.S0_VEC == 0
+    bufs = (lay.a_len, lay.b_len)
+    for s in range(1, len(chain)):
+        n, o = chain[s].n_taps, lay.n_out[s]
+        assert chain[s].M == 2 and o % kernels.VEC == 0
+        assert lay.n_out[s - 1] >= 2 * (o - 1) + n
+        assert lay.half[s] >= -(-lay.n_out[s - 1] // 2)
+        assert lay.half[s] >= 4 * (o // kernels.VEC - 1
+                                   + (kernels.VEC - 1 + (n - 1) // 2) // 4 + 1)
+        assert bufs[(s - 1) % 2] >= 2 * lay.half[s]
+        assert (p.n_taps[s], p.tap_off[s], p.n_out[s], p.half[s]) == (
+            n, lay.tap_off[s], o, lay.half[s])
+        # the stage's f32 taps among the coefficients
+        coefs = tfused.kernel_coefs(chain)
+        assert torch.equal(coefs[p.tap_off[s]:p.tap_off[s] + n],
+                           torch.tensor(np.asarray(chain[s].taps,
+                                                   dtype=np.float32)))
+        assert p.tap_off[s] % 4 == 0
+    assert bufs[(len(chain) - 1) % 2] >= lay.n_out[-1] >= p.block_out
     assert p.smem_bytes <= 227 * 1024  # an H100 block's shared memory
-    assert lay.out_len[-1] == p.block_out == tfused.block_out_for(chain)
-    assert p.block_out * tfused.decimation(chain) <= tfused.BLOCK_BITS
+    assert p.block_out == tfused.block_out_for(chain)
     assert p.n_stages == len(chain) <= kernels.MAX_STAGES
+
+
+def _synth(scale):
+    from dsd2dxd_tpu_torch.tools import synth_chain
+    return synth_chain(scale)
+
+
+PAD_CHAINS = ([pytest.param(lambda k=k: get_chain(*k), id=_key_id(k))
+               for k in ALL_CHAINS]
+              + [pytest.param(lambda k=k: _head(k), id=f"{_key_id(k)}-head")
+                 for k in CHAINS_48K]
+              + [pytest.param(lambda: _synth(0.0), id="synth0"),
+                 pytest.param(lambda: _synth(1.0), id="synth1")])
+
+
+@pytest.mark.parametrize("make_chain", PAD_CHAINS)
+def test_zero_padded_taps_keep_the_tree_sum(make_chain):
+    """Every stage: the pairwise tap sum over the taps zero-padded to a
+    multiple of 4 has the bits of the sum over the taps, on ±1 inputs
+    (stage 0's) and on f32 ones, whatever the inputs at the padded taps."""
+    rng = np.random.default_rng(50)
+    for st in make_chain():
+        h = torch.tensor(np.asarray(st.taps, dtype=np.float32))
+        n = h.numel()
+        hp = torch.cat([h, h.new_zeros(-n % 4)])
+        for x in (torch.from_numpy(rng.choice(
+                      np.float32([-1.0, 1.0]), (256, hp.numel()))),
+                  torch.from_numpy(rng.standard_normal(
+                      (256, hp.numel())).astype(np.float32))):
+            ref = tree_sum(x[:, k] * h[k] for k in range(n))
+            got = tree_sum(x[:, k] * hp[k] for k in range(hp.numel()))
+            assert torch.equal(ref.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("make_chain", PAD_CHAINS)
+def test_stage0_tables_are_subtree_sums(make_chain):
+    """Entry v of group g is the pairwise sum of h[4g + i] * (±1 by bit i
+    of v) over the zero-padded taps, for all 16 sign patterns, in f32;
+    and the kernel's coefficients start with these tables."""
+    chain = make_chain()
+    h = np.asarray(chain[0].taps, dtype=np.float32)
+    hp = np.concatenate([h, np.zeros(-h.size % 4, np.float32)])
+    tab = tfused.stage0_tables(torch.from_numpy(h))
+    assert tab.dtype == torch.float32 and tab.shape == (hp.size // 4, 16)
+    for g in range(hp.size // 4):
+        for v in range(16):
+            prods = [np.float32(hp[4 * g + i]) * np.float32(
+                1.0 if v >> i & 1 else -1.0) for i in range(4)]
+            want = np.float32(tree_sum(prods))
+            assert tab[g, v].numpy().view(np.int32) == want.view(np.int32)
+    coefs = tfused.kernel_coefs(chain)
+    assert torch.equal(coefs[:tab.numel()], tab.reshape(-1))
+
+
+def test_float_stage_beyond_div2_raises():
+    """K1's stages after the first are ÷2: a chain with a ÷4 second stage
+    is refused, on the CPU as on the card."""
+    from dsd2dxd_tpu_torch.filters.design import Stage
+
+    first = get_chain(*E64)[0]
+    chain = (first, Stage(taps=np.hanning(12)[1:-1] / 5.0, L=1, M=4))
+    assert tfused.decimation(chain) == 8
+    with pytest.raises(ConfigError):
+        tfused.make_fused_step(chain, _cfg(4096), "cpu")
 
 
 # -- Philox and dither ------------------------------------------------------

@@ -143,10 +143,11 @@ def test_p1_wrapper_cpu_counts_no_launch_and_checks_shapes():
 
 
 def test_p1_k1_blocks():
-    """K1's blocks (block_out x frame bytes over the 20 pure chains) and
-    one 4x larger, each with K1's largest overlap at that block."""
-    assert dmabench.k1_blocks() == [(512, 48), (1024, 96), (2048, 496),
-                                    (8192, 496)]
+    """K1's blocks (block_out x frame bytes over the 20 pure chains: 2560
+    B at ÷64, 2048 B at the other depths) and one 4x larger, each with
+    K1's largest overlap at that block (its window beyond the block's own
+    bytes, rounded up to 16)."""
+    assert dmabench.k1_blocks() == [(2048, 528), (2560, 384), (10240, 528)]
     g = dmabench.geometry(2048, 496)
     assert (g.block_words, g.halo_words, g.k_sub, g.load_words) == (
         512, 124, 512, 636)
@@ -315,3 +316,18 @@ def test_tools_run_plain_on_cpu_and_refuse_without_a_card(tool, monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(ConfigError):
         tool.main([])
+
+
+def test_blocksweep_needs_a_card(monkeypatch):
+    """The block_out sweep times K1 on the card: it refuses the CPU, and
+    without a card it raises."""
+    from dsd2dxd_tpu_torch.filters.design import get_chain
+    from dsd2dxd_tpu_torch.tools import blocksweep
+
+    with pytest.raises(ConfigError):
+        blocksweep.main(["--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ConfigError):
+        blocksweep.main([])
+    for depth, key in blocksweep.CHAINS.items():
+        assert fused.decimation(get_chain(*key)) == depth
