@@ -7,9 +7,10 @@ Run from the root of a checkout. Phases, one line each (kernel-vs-plain
 one line per chain); any failed check exits non-zero:
 
 1. env: Python, torch and CUDA versions, nvcc, the card (nvidia-smi).
-2. build: compiles csrc/fused_decim.cu (K1a-K1e), csrc/finish.cu (K2) and
-   csrc/probes.cu (P1, P2) with one nvcc each, started together, and
-   links them; prints every kernel's registers, spills and stack frame.
+2. build: compiles csrc/fused_decim.cu (K1a-K1e), csrc/finish.cu (K2, both
+   modes) and csrc/probes.cu (P1, P2) with one nvcc each, started
+   together, and links them; prints every kernel's registers, spills and
+   stack frame; K2's kernels must have no spill and no stack frame.
    Then K1 at each mode's chain and block: shared memory per block,
    resident blocks and warps per SM (cudaOccupancyMaxActiveBlocksPer
    Multiprocessor), registers and local bytes per thread
@@ -37,20 +38,29 @@ one line per chain); any failed check exits non-zero:
    channels, three streamed tiles at the engine's tile:
    - K1e vs plain: the planar f32 head against fused_decim_cascade at
      gain 1, bit-equal;
-   - tail precision: rational_tail (fp32 torch.matmul) on the heads' real
-     output against a float64 numpy oracle of the same band, below 2e-6;
-   - K2 vs plain on the tail's output, DSD64 -> 192k and DSD256 -> 96k at
-     16/20/24-bit NONE/TPDF/RECT and f32 NONE/FPD, with the limits of 3;
-   - the whole step (K1e, tail, K2 through make_rational_step) against its
-     plain path: all 9 at 24-bit TPDF, 3 at f32 FPD, the same limits;
-   - a partial final tile on DSD64 -> 192k: the peak is the plain
-     valid-prefix peak.
+   - tail precision: rational_tail_reference (the plain version of K2's
+     band sums) and rational_tail (the dense fp32 torch.matmul, the
+     tail's library call) on the heads' real output against a float64
+     numpy oracle of the same band, below 2e-6;
+   - K2 "from z" vs plain on the tail's output, DSD64 -> 192k and DSD256
+     -> 96k at 16/20/24-bit NONE/TPDF/RECT and f32 NONE/FPD, with the
+     limits of 3;
+   - K2 "from the head's samples" (K2t) vs rational_tail_reference then
+     finish_reference: the same 11 epilogues on those two chains, 24-bit
+     NONE/TPDF and f32 NONE/FPD on the other seven; wire bytes and peak
+     equal, and the limits of 3;
+   - the whole step (K1e, K2t through make_rational_step) against its
+     plain path: all 9 at 24-bit TPDF, 3 at f32 FPD, wire bytes and peak
+     equal;
+   - a partial final tile on DSD64 -> 192k: the step's wire bytes are the
+     plain path's and its peak is the plain valid-prefix peak.
 5. e2e, BASELINE config 1: a three-minute DSD64 stereo 1 kHz tone .dsf
    through the port's CLI to a 24-bit 352.8 kHz TPDF WAV; checks the WAV
    header, the frame count, the 1 kHz spectral peak and that the kernel
    (K1a) ran once per tile.
 6. e2e, integer 48k: the same .dsf to a 24-bit 96 kHz TPDF WAV (÷32 head,
-   3008-tap tail); the same checks, one K1e and one K2 launch per tile.
+   3008-tap tail); the same checks, one K1e and one K2t launch per tile
+   and no K2 "from z" launch.
 7. e2e, BASELINE config 2: the same three minutes as raw interleaved
    DSD64 (127 MB) on the CLI's stdin with `-f I -r 176400`, raw s24le on
    stdout; checks 180 x 176400 frames, the 1 kHz peak on both channels
@@ -62,7 +72,7 @@ one line per chain); any failed check exits non-zero:
 9. e2e, BASELINE config 4: a one-minute DSD256 stereo .dsf (169 MB)
    through the CLI with `-b 32 -o C -r 192000` (FPD by default); checks
    the AIFC `fl32` header, 60 x 192000 frames, the 1 kHz peak on both
-   channels and one K1e and one K2 launch per tile. Then the same .dsf
+   channels and one K1e and one K2t launch per tile. Then the same .dsf
    to a 24-bit 88.2 kHz TPDF WAV (÷128, K1c's deepest chain): the
    header, the frame count, the 1 kHz peak and one K1c launch per tile.
 10. probes: the floor probes of K1 (dsd2dxd_tpu_torch/tools). Every P1
@@ -78,26 +88,36 @@ one line per chain); any failed check exits non-zero:
     transpose and a cast) is held equal to the plain version, then timed
     beside it. Then both tools through their entry points at 16 MiB/ch
     stereo, 8 staged tiles (268 MB, more than the 50 MB L2), with their
-    launch counts read around each run.
+    launch counts read around each run; and tools/finishsweep.py through
+    its entry point at 512 and 2048 frames per run, which is what launches
+    K2 "from z" (no conversion does, since the step takes K2t).
 11. timing: kernel and plain version per 16 MiB/ch stereo tile, CUDA
     events over 8 staged tiles, plain-kernel-kernel-plain, for K1a (÷8),
     ÷16, ÷64 and ÷128 at 24-bit TPDF and ÷64 at 20-bit TPDF (K1d); for
     the 48k family, one 16.08 MiB/ch tile (the engine's unit-aligned
     tile) of DSD64 -> 192k and of DSD256 -> 96k: K1e against the plain
-    head, the tail alone, K2 against the plain finish (24-bit TPDF and
-    f32 FPD), and the whole step against its plain path.
+    head; rational_tail (the matmul) alone; K2 "from z" against the plain
+    finish at 24-bit NONE, 24-bit and 16-bit TPDF and f32 FPD; K2t against
+    its plain version at 24-bit NONE and TPDF and f32 FPD; the route the
+    step does not take (matmul, then K2 "from z") beside K2t, and the
+    smoke fails if that route is the faster; and the whole step against
+    its plain path.
 
 Each phase line ends with the seconds since the start. At the end it
 checks that neither jax nor any module of the JAX package (dsd2dxd_tpu)
 was loaded. Then the card's name and power limit, one JSON line on the
 kernels (K1's ÷128 chain a row of its own; launches from the e2e phase
-or tool run that drives each;
+or tool run that drives each, named in the row's launches_from: K2 "from
+z", P1 and P2 are launched by their tools' timing loops and by no
+conversion;
 max_abs_err in LSB of the output depth, absolute for f32; bound_ms the
-larger of the bytes over 3.35 TB/s and the f32 operations over 67
-TFLOP/s, from this run's inputs; library_ms the one PyTorch call of the
-same function where there is one, P1's noop, dma, halo0, contig and bspec,
-else null), and the last line {"ok": true,
-"device": {...}}.
+largest of the bytes over 3.35 TB/s, the f32 operations over 67 TFLOP/s
+and, for K2's dithered epilogues, the Philox calls' 18 multiplies (or
+their 18 xors: the two kinds run on separate pipes) over 16.7 TOP/s,
+from this run's inputs; library_ms the one PyTorch call
+of the same function where there is one -- P1's noop, dma, halo0, contig
+and bspec; for K2t the matmul that computes its tail -- else null), and
+the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -124,6 +144,28 @@ TOL_DITHER_LSB = 1
 # tensor cores (the least time for a kernel's work: bound())
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# 32-bit integer operations per second of one kind: an H100 SM has 64
+# INT32 lanes beside its 128 FP32 lanes (NVIDIA H100 Tensor Core GPU
+# Architecture white paper, the SM's four partitions of 16 INT32 and 32
+# FP32 cores), so a quarter of the FP32 rate, which counts an FMA as two:
+# 132 SMs x 64 lanes x 1.98 GHz
+PEAK_INT32_OPS = PEAK_F32_FLOPS / 4
+# integer operations that one Philox4x32-10 call of the epilogue needs
+# (epilogue.cuh: counter (frame, channel, 0, 0), words 0 and 1 of the
+# result used). A full round is two 32x32->64 multiplies (the high and the
+# low word of a product come out of one wide multiply) and two three-input
+# xors. The first round multiplies one counter word that is zero, and its
+# xors have two inputs; of the last round only one product and one xor are
+# read, of the round before it both products and one xor: 1 + 8 * 2 + 1 =
+# 18 multiplies and 2 + 7 * 2 + 1 + 1 = 18 xors (the compiled kernels hold
+# 17.25 and 17.5 per call, tools/sasscount.py). The key schedule is the
+# same for every sample of a launch and is not counted. The wide multiply
+# runs on the FMA pipe and the xor on the ALU pipe, 64 lanes per SM each,
+# so the two kinds may overlap: the bound takes the larger count alone,
+# the lower of the two readings of the card.
+PHILOX_MULTIPLIES = 18
+PHILOX_XORS = 18
+PHILOX_INT_OPS = max(PHILOX_MULTIPLIES, PHILOX_XORS)
 
 
 def fail(msg: str) -> None:
@@ -228,13 +270,14 @@ def s24(raw, shift: int = 0):
     return np.where(v >= 1 << 23, v - (1 << 24), v) >> shift
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, int_ops: float = 0.0):
     """(ms, "bytes" or "operations"): the least time the card could take
-    to move `nbytes` (each input read once, each output written once) and
-    do `flops` f32 operations."""
+    to move `nbytes` (each input read once, each output written once), do
+    `flops` f32 operations and do `int_ops` 32-bit integer operations
+    (the largest of the three times; they overlap on a card)."""
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    tf = flops / PEAK_F32_FLOPS * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
+    to = max(flops / PEAK_F32_FLOPS, int_ops / PEAK_INT32_OPS) * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def p1_library_call(x, mode: str, g, rows: int, n_blocks: int):
@@ -272,12 +315,12 @@ def fir_flops(chain, frames: int, channels: int) -> int:
     return 2 * macs * frames * channels
 
 
-def ptxas_summary(log: str) -> str:
-    """'kernel<template ints>: N regs, S spill, F stack' for every entry
-    ptxas compiled, from nvcc's -Xptxas -v output."""
+def ptxas_entries(log: str) -> list:
+    """(kernel<template ints>, registers, spill bytes, stack bytes) for
+    every entry ptxas compiled, from nvcc's -Xptxas -v output."""
     import re
 
-    out, name, stack = [], None, "?"
+    out, name, stack = [], None, "0"
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(_Z(\d+)\w+)'", ln)
         if m:
@@ -293,10 +336,9 @@ def ptxas_summary(log: str) -> str:
             continue
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            out.append(f"{name}: {m.group(1)} regs, {spill} spill, "
-                       f"{stack} stack")
+            out.append((name, int(m.group(1)), int(spill), int(stack)))
             name = None
-    return "; ".join(out)
+    return out
 
 
 def main() -> int:
@@ -336,11 +378,23 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.load()
     build_s = time.perf_counter() - t0
+    entries = ptxas_entries(kernels.BUILD_LOG)
+    k2_entries = [e for e in entries if e[0].startswith("finish")]
+    check(len(k2_entries) == 14,
+          f"want K2's 11 + 3 kernels in the build log (it is kept beside a "
+          f"library built earlier), got {k2_entries}")
+    check(all(e[2] == 0 and e[3] == 0 for e in k2_entries),
+          f"a K2 kernel spills or keeps a stack frame: {k2_entries}")
+    ptxas_text = "; ".join(f"{n}: {r} regs, {sp} spill, {st} stack"
+                           for n, r, sp, st in entries)
     phase("build", f"{build_s:.1f} s for {', '.join(kernels.SOURCES)} "
           f"(one nvcc each, in parallel; sm_90a; fused_decim: one kernel, "
           f"its 11 epilogues and the K1e planar head chosen per launch, "
-          f"finish: 11, probes: 6 P1 modes + 7 P2 rungs); ptxas: "
-          f"{ptxas_summary(kernels.BUILD_LOG) or 'cached'}")
+          f"finish: 11 epilogues 'from z' + the fused mode at 16, 18 and "
+          f"19 taps per phase, its epilogue chosen per launch, probes: 6 P1 "
+          f"modes + 7 P2 rungs); ptxas"
+          f"{'' if kernels.BUILD_SECONDS else ' (of the earlier build)'}: "
+          f"{ptxas_text}")
     occ_text = []
     for mode, key in (("K1a ÷8", (E, DsdRate.DSD64, 352800)),
                       ("K1b ÷16", (E, DsdRate.DSD64, 176400)),
@@ -532,7 +586,7 @@ def main() -> int:
           f"{tile // fb} frames): kernel peak {float(pk):.6g} = plain "
           f"valid-prefix peak {masked:.6g}; whole fixed tile {whole:.6g}")
 
-    # 4. the 48k family: K1e, the tail, K2, the whole step ---------------------
+    # 4. the 48k family: K1e, the tail, K2's two modes, the whole step ---------
     def tail_oracle(y, hist, band, nhist):
         """The ×160/147 band over the history and the head samples, in
         float64 numpy: (C, n * p_out / p_in)."""
@@ -547,7 +601,7 @@ def main() -> int:
     fpd_chains = ("E DSD64->384k", "E DSD128->192k", "E DSD256->192k")
     k2_epilogues = [(16, N), (16, T), (16, R), (20, N), (20, T), (20, R),
                     (24, N), (24, T), (24, R), (32, N), (32, F)]
-    tail_err = 0.0
+    k2t_epilogues = [(24, N), (24, T), (32, N), (32, F)]  # the other chains
     for rate in (DsdRate.DSD64, DsdRate.DSD128, DsdRate.DSD256):
         for out in (96000, 192000, 384000):
             name = f"E {rate.name}->{out // 1000}k"
@@ -559,16 +613,19 @@ def main() -> int:
                                  device=dev) for s in head]
             coefs = fused.kernel_coefs(head, dev)
             band_t = torch.from_numpy(rp.band.T.copy()).to(dev)
+            table = rational.kernel_table(rp, dev)
             cfg0 = StepConfig(channels=2, tile_bytes=tile, bit_depth=24,
                               dither=T, level_db=-1.5)
             gain = fused._gain32(cfg0)
             step_eps = [(24, T)] + ([(32, F)] if name in fpd_chains else [])
             fin_eps = k2_epilogues if name in k2_chains else []
+            tail_eps = k2_epilogues if name in k2_chains else k2t_epilogues
             steps = {ep: rational.make_rational_step(chain, StepConfig(
                 channels=2, tile_bytes=tile, bit_depth=ep[0], dither=ep[1],
                 level_db=-1.5), dev) for ep in step_eps}
             st_step = {ep: new_stats() for ep in step_eps}
             st_fin = {ep: new_stats() for ep in fin_eps}
+            st_tail = {ep: new_stats() for ep in tail_eps}
             states = {ep: rational.init_rational_state(chain, 2, dev)
                       for ep in step_eps}
             halo, hist = rational.init_rational_state(chain, 2, dev)
@@ -583,12 +640,17 @@ def main() -> int:
                 head_eq = head_eq and torch.equal(yk, yp)
                 max_err["K1e"] = max(max_err["K1e"],
                                      float((yk - yp).abs().max()))
-                z, new_hist = rational.rational_tail(yp, hist, band_t,
-                                                     rp.nhist)
+                z, new_hist = rational.rational_tail_reference(yp, hist, rp)
                 if t == 1:
                     zo = tail_oracle(yk.cpu().numpy(), hist.cpu().numpy(),
                                      rp.band, rp.nhist)
                     err = float(np.abs(z.cpu().numpy() - zo).max())
+                    zm, hm = rational.rational_tail(yp, hist, band_t,
+                                                    rp.nhist)
+                    err_mm = float(np.abs(zm.cpu().numpy() - zo).max())
+                    check(torch.equal(hm, new_hist),
+                          f"{name}: the two tails' histories differ")
+                    del zm, zo
                 zf = (z * gain).T.reshape(-1)
                 for (bits, dither) in fin_eps:
                     cfg = StepConfig(channels=2, tile_bytes=tile,
@@ -599,6 +661,20 @@ def main() -> int:
                     torch.cuda.synchronize()
                     tile_stats(st_fin[(bits, dither)], f"{name} K2", wk, pk,
                                wr, pr, zf, bits, dither)
+                for (bits, dither) in tail_eps:
+                    cfg = StepConfig(channels=2, tile_bytes=tile,
+                                     bit_depth=bits, dither=dither,
+                                     level_db=-1.5)
+                    wk, pk = rational.finish_tail_cuda(yk, hist, table, rp,
+                                                       gain, k64, cfg)
+                    wr, pr = fused.finish_reference(z, gain, k64, cfg)
+                    torch.cuda.synchronize()
+                    check(torch.equal(wk, wr) and float(pk) == float(pr),
+                          f"{name} K2t {bits}-bit {dither.name}: not equal "
+                          f"to its plain version (peaks {float(pk)}, "
+                          f"{float(pr)})")
+                    tile_stats(st_tail[(bits, dither)], f"{name} K2t", wk,
+                               pk, wr, pr, zf, bits, dither)
                 for (bits, dither), step in steps.items():
                     cfg = StepConfig(channels=2, tile_bytes=tile,
                                      bit_depth=bits, dither=dither,
@@ -612,17 +688,21 @@ def main() -> int:
                           and torch.equal(states[(bits, dither)][1],
                                           new_hist),
                           f"{name}: the step's new state differs")
+                    check(torch.equal(wk, wr) and float(pk) == float(pr),
+                          f"{name} step {bits}-bit {dither.name}: not equal "
+                          f"to its plain path")
                     tile_stats(st_step[(bits, dither)], f"{name} step", wk,
                                pk, wr, pr, zf, bits, dither)
                 halo, hist = x[:, tile - halo.shape[1]:].contiguous(), new_hist
             check(head_eq, f"{name}: K1e is not bit-equal to the plain head")
-            check(err < 2e-6, f"{name}: tail {err} from the f64 oracle")
-            tail_err = max(tail_err, err)
+            check(err < 2e-6 and err_mm < 2e-6,
+                  f"{name}: tail {err} (matmul {err_mm}) from the f64 oracle")
             n_base = tile * 8 // rp.r_head
             phase("K1e-vs-plain", f"{name} (÷{rp.r_head} head, {tile} B/ch "
                   f"tiles, {n_base} head frames/ch): bit-equal on 3 tiles; "
-                  f"tail vs f64 oracle {err:.3g} (band {rp.band.shape}, "
-                  f"nhist {rp.nhist})")
+                  f"tail vs f64 oracle: plain tree sums {err:.3g}, matmul "
+                  f"{err_mm:.3g} (band {rp.band.shape}, nhist {rp.nhist}, "
+                  f"{table.n_taps} taps per phase)")
             if fin_eps:
                 parts = [verdict(f"{name} K2", b, d, st_fin[(b, d)])
                          for b, d in fin_eps]
@@ -630,10 +710,19 @@ def main() -> int:
                     st_fin[ep]["diff"] for ep in fin_eps])
                 phase("K2-vs-plain", f"{name} ({n_base * 160 // 147} final "
                       f"frames/ch): " + "; ".join(parts))
+            parts = [verdict(f"{name} K2t", b, d, st_tail[(b, d)])
+                     for b, d in tail_eps]
+            max_err["K2t"] = max([max_err["K2t"]] + [
+                st_tail[ep]["diff"] for ep in tail_eps])
+            phase("K2t-vs-plain", f"{name} (head samples -> wire bytes, "
+                  f"{n_base // 147} band blocks/ch; wire bytes and peak "
+                  f"equal to rational_tail_reference + finish_reference): "
+                  + "; ".join(parts))
             parts = [verdict(f"{name} step", b, d, st_step[(b, d)])
                      for b, d in step_eps]
-            phase("step-vs-plain", f"{name} (K1e + tail + K2 against the "
-                  f"plain head, tail and finish): " + "; ".join(parts))
+            phase("step-vs-plain", f"{name} (K1e + K2t against the plain "
+                  f"head, tail and finish; wire bytes and peak equal): "
+                  + "; ".join(parts))
 
     # partial final tile on a 48k chain: the peak of the valid prefix
     chain = get_chain(E, DsdRate.DSD64, 192000)
@@ -647,21 +736,22 @@ def main() -> int:
     cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=24, dither=T,
                      level_db=0.0)
     state = rational.init_rational_state(chain, 2, dev)
-    _w, pk, _s = rational.make_rational_step(chain, cfg, dev)(
+    wk, pk, _s = rational.make_rational_step(chain, cfg, dev)(
         x, state, 5, n_valid)
     head = chain[:rp.n_head]
     taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32), device=dev)
             for s in head]
-    z, _h = rational.rational_tail(
+    z, _h = rational.rational_tail_reference(
         fused.fused_decim_cascade(x, state[0], taps, head, 1.0), state[1],
-        torch.from_numpy(rp.band.T.copy()).to(dev), rp.nhist)
+        rp)
+    wr, _p = fused.finish_reference(z, 1.0, 5, cfg, n_valid=n_valid)
     torch.cuda.synchronize()
     masked, whole = float(z[:, :n_valid].abs().max()), float(z.abs().max())
-    check(abs(float(pk) - masked) <= 1e-6,
+    check(torch.equal(wk, wr) and float(pk) == masked,
           f"48k partial tile: kernel peak {float(pk)} vs valid-prefix "
-          f"{masked}")
+          f"{masked}, or other wire bytes")
     check(whole > float(pk) + 0.1, "48k partial tile: the pad did not ring")
-    phase("K2-vs-plain", f"partial final tile (DSD64->192k, n_valid "
+    phase("K2t-vs-plain", f"partial final tile (DSD64->192k, n_valid "
           f"{n_valid} of {n_out} frames): step peak {float(pk):.6g} = plain "
           f"valid-prefix peak {masked:.6g}; whole fixed tile {whole:.6g}")
 
@@ -715,10 +805,12 @@ def main() -> int:
         rc = cli_run(["-o", "w", "-r", "96000", "-q", "-p", str(out_dir),
                       str(src)])
         wall = time.perf_counter() - t0
-        k1e, k2 = fused.MODE_LAUNCHES["K1e"], fused.MODE_LAUNCHES["K2"]
+        k1e, k2 = fused.MODE_LAUNCHES["K1e"], fused.MODE_LAUNCHES["K2t"]
         check(rc == 0, f"CLI exited {rc}")
-        check(k1e == k2 == fused.KERNEL_LAUNCHES == n_tiles,
-              f"K1e/K2 launched {k1e}/{k2} times for {n_tiles} tiles")
+        check(k1e == k2 == fused.KERNEL_LAUNCHES == n_tiles
+              and fused.MODE_LAUNCHES["K2"] == 0,
+              f"K1e/K2t launched {k1e}/{k2} times for {n_tiles} tiles, K2 "
+              f"'from z' {fused.MODE_LAUNCHES['K2']}")
         wav_path = out_dir / "tone_dsd64_180s.wav"
         with wave.open(str(wav_path)) as w:
             params = (w.getnchannels(), w.getsampwidth(), w.getframerate(),
@@ -733,7 +825,7 @@ def main() -> int:
         phase("e2e", f"integer 48k: CLI {SECONDS} s DSD64 stereo .dsf -> "
               f"24-bit 96k TPDF WAV ({wav_path.stat().st_size / 1e6:.1f} MB) "
               f"in {wall:.2f} s = {SECONDS / wall:.1f} audio-s/s; {n_tiles} "
-              f"tiles of {tile_bytes} B/ch, {k1e} K1e + {k2} K2 launches; "
+              f"tiles of {tile_bytes} B/ch, {k1e} K1e + {k2} K2t launches; "
               f"FFT peak {peak_hz.tolist()} Hz; card [{label}]")
         src.unlink()
         wav_path.unlink()
@@ -841,11 +933,13 @@ def main() -> int:
                       str(out_dir), str(src)])
         wall = time.perf_counter() - t0
         launches["K1e"] = fused.MODE_LAUNCHES["K1e"]
-        launches["K2"] = fused.MODE_LAUNCHES["K2"]
+        launches["K2t"] = fused.MODE_LAUNCHES["K2t"]
         check(rc == 0, f"CLI exited {rc}")
-        check(launches["K1e"] == launches["K2"] == fused.KERNEL_LAUNCHES
-              == n_tiles, f"K1e/K2 launched {launches['K1e']}/"
-              f"{launches['K2']} times for {n_tiles} tiles")
+        check(launches["K1e"] == launches["K2t"] == fused.KERNEL_LAUNCHES
+              == n_tiles and fused.MODE_LAUNCHES["K2"] == 0,
+              f"K1e/K2t launched {launches['K1e']}/{launches['K2t']} times "
+              f"for {n_tiles} tiles, K2 'from z' "
+              f"{fused.MODE_LAUNCHES['K2']}")
         aifc_path = out_dir / "tone_dsd256_60s.aifc"
         ch, frames, bits, ctype, pcm = read_aifc_f32(aifc_path)
         check((ch, frames, bits, ctype) == (2, sec * 192000, 32, b"fl32"),
@@ -861,7 +955,7 @@ def main() -> int:
               f"AIFC ({aifc_path.stat().st_size / 1e6:.1f} MB, fl32, "
               f"{frames} frames) in {wall:.2f} s = {sec / wall:.1f} "
               f"audio-s/s; {n_tiles} tiles of {tile_bytes} B/ch, "
-              f"{launches['K1e']} K1e + {launches['K2']} K2 launches; FFT "
+              f"{launches['K1e']} K1e + {launches['K2t']} K2t launches; FFT "
               f"peak {peak_hz.tolist()} Hz; card [{label}]")
         aifc_path.unlink()
 
@@ -1060,6 +1154,25 @@ def main() -> int:
           f"{p1_ms}, P2 {p2_ms}; P1's library calls at block 2048 B "
           f"{ {m: round(v, 4) for m, v in p1_lib.items()} }; card [{label}]")
 
+    # K2 "from z" through its tool's entry point: no conversion launches it
+    # since the step takes K2t
+    from dsd2dxd_tpu_torch.tools import finishsweep
+
+    fused.reset_launch_counts()
+    sweep = finishsweep.main(["--frames", "512,2048", "--reps", "2"])
+    launches["K2"] = fused.MODE_LAUNCHES["K2"]
+    check(launches["K2"] > 0 and fused.MODE_LAUNCHES["K2t"] == 0
+          and fused.KERNEL_LAUNCHES == 0,
+          f"finishsweep launched K2 'from z' {launches['K2']} times, K2t "
+          f"{fused.MODE_LAUNCHES['K2t']}, K1 {fused.KERNEL_LAUNCHES}")
+    torch.cuda.empty_cache()
+    phase("probes", f"finishsweep through its entry point: {launches['K2']} "
+          f"K2 'from z' launches; ms per tile at 512 / 2048 frames per run "
+          f"(fastest of the two: {finishsweep.fastest(sweep)}, in use: "
+          f"{fused.FINISH_RUN_FRAMES}): "
+          + ", ".join(f"{tag} {sweep[512][tag]:.4f} / {sweep[2048][tag]:.4f}"
+                      for tag in sweep[512]) + f"; card [{label}]")
+
     probe_rows = []
     g = p1[2048]["geometry"]
     for m in dmabench.KERNEL_MODES:
@@ -1070,7 +1183,9 @@ def main() -> int:
                     f"{g.halo_words * 4} B)",
             "route": "cuda", "source": "dsd2dxd_tpu_torch/csrc/probes.cu",
             "replaces": "tools/dmabench.py:96 (_probe, pallas_call :181)",
-            "launches": p1_launches[m], "max_abs_err": p1_err[m],
+            "launches": p1_launches[m],
+            "launches_from": "tools/dmabench.py (no conversion launches it)",
+            "max_abs_err": p1_err[m],
             "ms": p1[2048]["med_ms"][m], "plain_ms": p1_plain[m],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": p1_lib.get(m)})
@@ -1088,7 +1203,10 @@ def main() -> int:
             "route": "cuda", "source": "dsd2dxd_tpu_torch/csrc/probes.cu",
             "replaces": "tools/floorstrip.py:46 (_probe_step, "
                         "pallas_call :226)",
-            "launches": p2_launches[r], "max_abs_err": p2_err[r],
+            "launches": p2_launches[r],
+            "launches_from": "tools/floorstrip.py (no conversion launches "
+                             "it)",
+            "max_abs_err": p2_err[r],
             "ms": p2["med_ms"][r], "plain_ms": p2_plain[r],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
@@ -1110,7 +1228,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return ev0.elapsed_time(ev1) / len(xs)
 
-    timed, bounds = {}, {}
+    timed, bounds, library_ms = {}, {}, {}
     for mode, name, key, bits in [
             ("K1a", "÷8 E DSD64->352.8k 24-bit", (E, DsdRate.DSD64, 352800), 24),
             ("K1b", "÷16 E DSD64->176.4k 24-bit", (E, DsdRate.DSD64, 176400), 24),
@@ -1171,6 +1289,7 @@ def main() -> int:
                              device=dev) for s in head]
         coefs = fused.kernel_coefs(head, dev)
         band_t = torch.from_numpy(rp.band.T.copy()).to(dev)
+        table = rational.kernel_table(rp, dev)
         halo, hist = rational.init_rational_state(chain, 2, dev)
         ys = [fused.fused_head_cuda(x, halo, coefs, head) for x in xs]
         zs = [rational.rational_tail(y, hist, band_t, rp.nhist)[0]
@@ -1179,24 +1298,53 @@ def main() -> int:
         head_k, head_p, head_runs = alternate(
             lambda i: fused.fused_decim_cascade(xs[i], halo, taps, head, 1.0),
             lambda i: fused.fused_head_cuda(xs[i], halo, coefs, head), n)
-        tail_ms = (ev_ms(lambda i: rational.rational_tail(
-            ys[i], hist, band_t, rp.nhist), n) + ev_ms(
-            lambda i: rational.rational_tail(ys[i], hist, band_t, rp.nhist),
-            n)) / 2
-        fin = {}
-        for bits, dither in ((24, T), (32, F)):
+
+        def matmul_tail(i):
+            return rational.rational_tail(ys[i], hist, band_t, rp.nhist)
+
+        tail_ms = (ev_ms(matmul_tail, n) + ev_ms(matmul_tail, n)) / 2
+        fin, fused_t, route = {}, {}, {}
+        for bits, dither in ((24, N), (24, T), (32, F)):
             cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=bits,
                              dither=dither, level_db=0.0)
-            fin[bits] = alternate(
+            ep = (bits, dither)
+            fin[ep] = alternate(
                 lambda i, c=cfg: fused.finish_reference(zs[i], 1.0, keys[i], c),
                 lambda i, c=cfg: fused.finish_cuda(zs[i], 1.0, keys[i], c), n)
+
+            def plain_tail(i, c=cfg):
+                z, _h = rational.rational_tail_reference(ys[i], hist, rp)
+                return fused.finish_reference(z, 1.0, keys[i], c)
+
+            def matmul_route(i, c=cfg):
+                z, _h = rational.rational_tail(ys[i], hist, band_t, rp.nhist)
+                return fused.finish_cuda(z, 1.0, keys[i], c)
+
+            def fused_route(i, c=cfg):
+                return rational.finish_tail_cuda(ys[i], hist, table, rp, 1.0,
+                                                 keys[i], c)
+
+            fused_t[ep] = alternate(plain_tail, fused_route, n)
+            # the two routes from the head's samples to the wire bytes, in
+            # turns: matmul + K2 "from z", K2t, K2t, matmul + K2 "from z"
+            route[ep] = alternate(matmul_route, fused_route, n)
+            check(route[ep][0] < route[ep][1],
+                  f"48k {name} {bits}-bit {dither.name}: the fused mode "
+                  f"({route[ep][0]:.3f} ms) is not faster than matmul + K2 "
+                  f"'from z' ({route[ep][1]:.3f} ms), yet the step takes it")
+        # fewer bytes, the same Philox calls: which of the two bounds holds
+        cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=16,
+                         dither=T, level_db=0.0)
+        fin[(16, T)] = alternate(
+            lambda i, c=cfg: fused.finish_reference(zs[i], 1.0, keys[i], c),
+            lambda i, c=cfg: fused.finish_cuda(zs[i], 1.0, keys[i], c), n)
         cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=24,
                          dither=T, level_db=0.0)
         step = rational.make_rational_step(chain, cfg, dev)
 
         def plain_step(i, _cfg=cfg):
             y = fused.fused_decim_cascade(xs[i], halo, taps, head, 1.0)
-            z, _h = rational.rational_tail(y, hist, band_t, rp.nhist)
+            z, _h = rational.rational_tail_reference(y, hist, rp)
             return fused.finish_reference(z, 1.0, keys[i], _cfg)
 
         step_k, step_p, step_runs = alternate(
@@ -1204,20 +1352,69 @@ def main() -> int:
         audio = tile * 8 / key[1].hz
         n_base = tile * 8 // rp.r_head
         n_out = n_base * 160 // 147
+        n_taps = table.n_taps
+        # bytes: each sample in once (and the history, the table), each wire
+        # byte out once; f32 operations: gain, scale, dither sum, round,
+        # clip per sample, and one product and one sum per band entry
+        b_none = bound(2 * n_out * (4 + 3), 5 * 2 * n_out)
+        b_tpdf = bound(2 * n_out * (4 + 3), 5 * 2 * n_out,
+                       PHILOX_INT_OPS * 2 * n_out)
+        b_fpd = bound(2 * n_out * (4 + 4), 5 * 2 * n_out,
+                      PHILOX_INT_OPS * 2 * n_out)
+        b_16 = bound(2 * n_out * (4 + 2), 5 * 2 * n_out,
+                     PHILOX_INT_OPS * 2 * n_out)
+        in_bytes = 2 * (n_base + 147) * 4 + table.coefs.numel() * 4 + 160 * 4
+        bt_none = bound(in_bytes + 2 * n_out * 3,
+                        (2 * n_taps + 5) * 2 * n_out)
+        bt_tpdf = bound(in_bytes + 2 * n_out * 3,
+                        (2 * n_taps + 5) * 2 * n_out,
+                        PHILOX_INT_OPS * 2 * n_out)
+        bt_fpd = bound(in_bytes + 2 * n_out * 4,
+                       (2 * n_taps + 5) * 2 * n_out,
+                       PHILOX_INT_OPS * 2 * n_out)
+        # the tail alone: samples in, samples out; the dense product does
+        # 2 * (147 + nhist) * 160 operations per band block, the band
+        # needs 2 * T * 160
+        blocks = 2 * (n_base // 147)
+        b_tail_dense = bound(2 * (n_base + n_out) * 4,
+                             2 * rp.band.shape[1] * 160 * blocks)
+        b_tail_need = bound(2 * (n_base + n_out) * 4,
+                            2 * n_taps * 160 * blocks)
         if key[1] is DsdRate.DSD64:
             timed["K1e"] = (head_k, head_p)
-            timed["K2"] = fin[24][:2]
+            timed["K2"] = fin[(24, T)][:2]
+            timed["K2t"] = fused_t[(24, T)][:2]
+            library_ms["K2t"] = tail_ms
             bounds["K1e"] = bound(
                 2 * (tile + fused.chain_halo_bytes(head)) + 2 * n_base * 4,
                 fir_flops(head, n_base, 2))
-            bounds["K2"] = bound(2 * n_out * (4 + 3), 5 * 2 * n_out)
+            bounds["K2"] = b_tpdf
+            bounds["K2t"] = bt_tpdf
+
+        def fmt(t, b):
+            return (f"{t[0]:.4f} ms (runs {[round(v, 4) for v in t[2]['kernel']]}"
+                    f", bound {b[0]:.4f} by {b[1]}, {b[0] / t[0] * 100:.1f} %) "
+                    f"vs plain {t[1]:.3f} ms")
+
         phase("timing", f"48k {name}, {tile} B/ch stereo tile ({audio:.2f} s "
-              f"audio, ÷{rp.r_head} head, {n_out} final frames/ch): K1e "
-              f"{head_k:.3f} ms (runs {head_runs['kernel']}) vs plain head "
-              f"{head_p:.3f} ms (runs {head_runs['plain']}); tail "
-              f"(torch.matmul) {tail_ms:.3f} ms; K2 24-bit TPDF "
-              f"{fin[24][0]:.3f} ms vs plain finish {fin[24][1]:.3f} ms; K2 "
-              f"f32 FPD {fin[32][0]:.3f} ms vs plain {fin[32][1]:.3f} ms; "
+              f"audio, ÷{rp.r_head} head, {n_out} final frames/ch, {n_taps} "
+              f"taps per phase): K1e {head_k:.3f} ms (runs "
+              f"{head_runs['kernel']}) vs plain head {head_p:.3f} ms (runs "
+              f"{head_runs['plain']}); tail as one torch.matmul (the "
+              f"library call) {tail_ms:.4f} ms (bound {b_tail_dense[0]:.4f} "
+              f"by {b_tail_dense[1]} for the dense product, "
+              f"{b_tail_need[0]:.4f} by {b_tail_need[1]} for the band's "
+              f"entries); K2 'from z' 24-bit NONE {fmt(fin[(24, N)], b_none)}"
+              f", 24-bit TPDF {fmt(fin[(24, T)], b_tpdf)}, 16-bit TPDF "
+              f"{fmt(fin[(16, T)], b_16)}, f32 FPD "
+              f"{fmt(fin[(32, F)], b_fpd)}; K2t 24-bit NONE "
+              f"{fmt(fused_t[(24, N)], bt_none)}, 24-bit TPDF "
+              f"{fmt(fused_t[(24, T)], bt_tpdf)}, f32 FPD "
+              f"{fmt(fused_t[(32, F)], bt_fpd)}; head samples -> wire bytes "
+              f"by K2t against matmul + K2 'from z', in turns: 24-bit NONE "
+              f"{route[(24, N)][0]:.4f} vs {route[(24, N)][1]:.4f} ms, 24-bit "
+              f"TPDF {route[(24, T)][0]:.4f} vs {route[(24, T)][1]:.4f}, f32 "
+              f"FPD {route[(32, F)][0]:.4f} vs {route[(32, F)][1]:.4f}; "
               f"whole step 24-bit TPDF {step_k:.3f} ms "
               f"({audio / step_k * 1e3:.0f} audio-s/s, runs "
               f"{step_runs['kernel']}) vs plain path {step_p:.3f} ms; "
@@ -1228,7 +1425,7 @@ def main() -> int:
     jax_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "dsd2dxd_tpu")
     check(not jax_pkg, f"modules of the JAX package were loaded: {jax_pkg}")
     check(all(launches[m] > 0 for m in ("K1a", "K1b", "K1c", "K1d", "K1e",
-                                        "K2", "÷128")),
+                                        "K2", "K2t", "÷128")),
           f"a kernel mode was not launched on its path: {launches}")
     k1 = "dsd2dxd_tpu_torch/csrc/fused_decim.cu"
     rows = [("K1a", "fused_decim (K1a: G=1 ÷8, 24-bit)", k1,
@@ -1245,18 +1442,32 @@ def main() -> int:
             ("K1e", "fused_decim (K1e: planar f32 head of the 48k chains)",
              k1, "dsd2dxd_tpu/ops/fused.py:1219 (make_fused_rational_step "
              "head: _build_kernel at bit_depth 32, no dither, level 0)"),
-            ("K2", "finish (K2: gain, peak, dither, quantize, wire bytes)",
+            ("K2", "finish (K2 'from z': gain, peak, dither, quantize, wire "
+             "bytes; 24-bit TPDF; the step takes K2t, so no conversion "
+             "launches it: its launches are the finishsweep tool's timing "
+             "loop, not a workload's)",
              "dsd2dxd_tpu_torch/csrc/finish.cu",
              "dsd2dxd_tpu/ops/fused.py:1019 (make_finish_planes, "
-             "pallas_call :1120)")]
+             "pallas_call :1120)"),
+            ("K2t", "finish (K2t 'from the head's samples': the ×160/147 "
+             "band out of shared memory, then K2's finish; 24-bit TPDF; "
+             "library_ms: the tail alone as one torch.matmul)",
+             "dsd2dxd_tpu_torch/csrc/finish.cu",
+             "dsd2dxd_tpu/ops/fused.py:1019 (make_finish_planes, "
+             "pallas_call :1120) with the XLA tail "
+             "dsd2dxd_tpu/ops/phase.py (stage_apply_rational_natural)")]
     print(label)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src_file, "replaces": rep,
-        "launches": launches[m], "max_abs_err": max_err[m],
+        "launches": launches[m],
+        "launches_from": ("tools/finishsweep.py, a timing loop (0 launches "
+                          "on the conversions)" if m == "K2"
+                          else "the e2e conversions through the CLI"),
+        "max_abs_err": max_err[m],
         "ms": timed[m][0], "plain_ms": timed[m][1],
         "bound_ms": bounds[m][0], "bound_by": bounds[m][1],
         # no one PyTorch call unpacks, cascades, dithers and packs
-        "library_ms": None}
+        "library_ms": library_ms.get(m)}
         for m, name, src_file, rep in rows] + probe_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -90,9 +90,9 @@ __device__ __forceinline__ void store_wire(uint8_t* o, uint32_t w,
 // Fold each thread's |y| maximum into *peak: warp max, block max, then one
 // atomicMax on the bit pattern of the non-negative f32 (it orders like the
 // value, so the result is order-independent and deterministic). Every
-// thread of the block must call it.
+// thread of the block must call it (a block of any size up to 1024).
 __device__ __forceinline__ void block_peak(float local_peak, float* peak) {
-  __shared__ float warp_max[THREADS / 32];
+  __shared__ float warp_max[32];
   const int tid = threadIdx.x;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)

@@ -83,9 +83,9 @@
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "tree_sum.cuh"
 
 #define MAX_STAGES 8
-#define MAX_LEVELS 8   // tree levels: taps (or tap groups) per stage < 256
 #define VEC 4          // outputs per thread of a ÷2 float stage
 #define MIN_BLOCKS 4   // blocks per SM the registers must allow (<= 64 each)
 #define MAX_SMEM (227 * 1024)
@@ -122,38 +122,6 @@ struct DecimParams {
   int big_endian;
   int planar;        // K1e: planar f32 out[c * tile_frames + m], no peak
 };
-
-// Item k of a sum taken pairwise in the plain version's order
-// (plan.tree_sum: a binary counter, acc[lv] the pending block of 2^lv
-// items). With k known at compile time the branches fold away.
-__device__ __forceinline__ void tree_push(float (&acc)[MAX_LEVELS], int k,
-                                          float v) {
-#pragma unroll
-  for (int lv = 0; lv < MAX_LEVELS; ++lv) {
-    if ((k >> lv) & 1) {
-      v = __fadd_rn(acc[lv], v);
-    } else {
-      acc[lv] = v;
-      return;
-    }
-  }
-}
-
-// The sum of n pushed items: S_a + (S_b + ...) over n's power-of-two
-// blocks, largest (first) outermost.
-__device__ __forceinline__ float tree_total(const float (&acc)[MAX_LEVELS],
-                                            int n) {
-  float out = 0.0f;
-  bool have = false;
-#pragma unroll
-  for (int lv = 0; lv < MAX_LEVELS; ++lv) {
-    if ((n >> lv) & 1) {
-      out = have ? __fadd_rn(acc[lv], out) : acc[lv];
-      have = true;
-    }
-  }
-  return out;
-}
 
 __device__ __forceinline__ float lane(const float4& a, int i) {
   return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;

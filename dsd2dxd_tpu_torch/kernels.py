@@ -112,9 +112,11 @@ class ProbeParams(ctypes.Structure):
 
 
 class FinishParams(ctypes.Structure):
-    """Mirror of ``struct FinishParams`` in csrc/finish.cu (two 8-byte
-    fields first, then 4-byte ones: no padding on either side; the loader
-    compares sizeof)."""
+    """Mirror of ``struct FinishParams`` in csrc/finish.cu, K2's two
+    modes: "from z" reads run_frames, "from the head's samples" the
+    fields from n_blocks on (two 8-byte fields first, then an even number
+    of 4-byte ones: no padding on either side; the loader compares
+    sizeof)."""
 
     _fields_ = [
         ("n_frames", ctypes.c_longlong),
@@ -126,6 +128,13 @@ class FinishParams(ctypes.Structure):
         ("key0", ctypes.c_uint32),
         ("key1", ctypes.c_uint32),
         ("big_endian", ctypes.c_int),
+        ("run_frames", ctypes.c_int),
+        ("n_blocks", ctypes.c_int),
+        ("nhist", ctypes.c_int),
+        ("n_taps", ctypes.c_int),
+        ("coef_stride", ctypes.c_int),
+        ("win_stride", ctypes.c_int),
+        ("smem_bytes", ctypes.c_int),
     ]
 
 
@@ -149,7 +158,8 @@ class DmaParams(ctypes.Structure):
 
 _lock = threading.Lock()
 _lib = None
-BUILD_LOG = ""         # nvcc's output (ptxas register/smem report)
+BUILD_LOG = ""         # nvcc's output (ptxas register/smem report), kept
+                       # beside the library for the loads that find it built
 BUILD_SECONDS = None   # wall time of the last build, None if cached
 
 
@@ -176,7 +186,9 @@ def build() -> Path:
     return the library path. Raises RuntimeError on a failed build."""
     global BUILD_LOG, BUILD_SECONDS
     lib_path = BUILD_DIR / f"libdsd2dxd_torch_{_digest()}.so"
+    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
+        BUILD_LOG = log_path.read_text() if log_path.exists() else ""
         return lib_path
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -204,6 +216,7 @@ def build() -> Path:
         BUILD_SECONDS = time.perf_counter() - t0
         if bad:
             raise RuntimeError(f"nvcc failed {bad}:\n{BUILD_LOG}")
+        log_path.write_text(BUILD_LOG)
         os.replace(tmp, lib_path)
     finally:
         for f in (*objs, tmp):
@@ -251,6 +264,17 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,  # cudaStream_t
         ]
         lib.dsd2dxd_finish.restype = ctypes.c_int
+        lib.dsd2dxd_finish_tail.argtypes = [
+            ctypes.c_void_p,  # y (C, 147 n_blocks) f32
+            ctypes.c_void_p,  # hist (C, 147) f32
+            ctypes.c_void_p,  # coefs (160, coef_stride) f32
+            ctypes.c_void_p,  # offs (160,) i32
+            ctypes.c_void_p,  # out (160 n_blocks*C*bytes_per_sample,) u8
+            ctypes.c_void_p,  # peak f32[1], zeroed
+            ctypes.POINTER(FinishParams),
+            ctypes.c_void_p,  # cudaStream_t
+        ]
+        lib.dsd2dxd_finish_tail.restype = ctypes.c_int
         lib.dsd2dxd_dma_params_size.argtypes = []
         lib.dsd2dxd_dma_params_size.restype = ctypes.c_int
         if lib.dsd2dxd_dma_params_size() != ctypes.sizeof(DmaParams):

@@ -80,9 +80,11 @@ _FLOAT_DITHERS = (DitherType.NONE, DitherType.FPD)
 # Kernel launches (incremented right after each successful launch, and
 # nowhere else): a run shows it went through the kernel by reading these.
 # MODE_LAUNCHES counts each launch under the TPU-kernel modes it ports
-# (``kernel_modes``).
+# (``kernel_modes``; K2: the finish "from z", K2t: the finish "from the
+# head's samples", ``ops/rational.py::finish_tail_cuda``).
 KERNEL_LAUNCHES = 0  # fused_decim launches (K1a-K1e)
-MODE_LAUNCHES = {"K1a": 0, "K1b": 0, "K1c": 0, "K1d": 0, "K1e": 0, "K2": 0}
+MODE_LAUNCHES = {"K1a": 0, "K1b": 0, "K1c": 0, "K1d": 0, "K1e": 0, "K2": 0,
+                 "K2t": 0}
 _launch_lock = threading.Lock()
 
 
@@ -624,12 +626,56 @@ def kernel_occupancy(chain: Sequence[Stage],
             "local_bytes": res[3]}
 
 
+# K2 "from z": frames per run (a power of two >= 16; the fastest of
+# tools/finishsweep.py: for stereo four items per thread and a barrier
+# every 4096 samples), halved for wide files until the two staged runs of
+# 32-bit samples fit 40 KB of the 48 KB of shared memory a block has
+# without asking (the kernel keeps a few static bytes too)
+FINISH_RUN_FRAMES = 2048
+_FINISH_STAGE_BYTES = 40 * 1024
+
+
+def finish_params(n: int, channels: int, gain: float, tile_key: int,
+                  cfg: StepConfig, big_endian: bool, n_valid: Optional[int],
+                  run_frames: Optional[int] = None) -> kernels.FinishParams:
+    """K2's FinishParams for (channels, n) final frames: the epilogue
+    fields both modes read, and the run of mode "from z" (`run_frames`
+    overrides FINISH_RUN_FRAMES)."""
+    p = kernels.FinishParams()
+    p.n_frames = n
+    p.n_valid = n if n_valid is None else max(0, min(int(n_valid), n))
+    p.channels = channels
+    p.gain = gain
+    p.bit_depth = cfg.bit_depth
+    p.dither = _DITHER_CODE[cfg.dither]
+    p.key0 = tile_key & 0xFFFFFFFF
+    p.key1 = (tile_key >> 32) & 0xFFFFFFFF
+    p.big_endian = int(big_endian)
+    p.run_frames = run_frames or FINISH_RUN_FRAMES
+    while (p.run_frames >= 16
+           and 8 * channels * p.run_frames > _FINISH_STAGE_BYTES):
+        p.run_frames //= 2
+    if p.run_frames < 16:
+        raise ConfigError(f"the finish kernel stages at most "
+                          f"{_FINISH_STAGE_BYTES // 128} channels")
+    return p
+
+
+def count_launch(*modes: str) -> None:
+    """Count one launch under each of `modes` (``MODE_LAUNCHES``)."""
+    with _launch_lock:
+        for mode in modes:
+            MODE_LAUNCHES[mode] += 1
+
+
 def finish_cuda(z: torch.Tensor, gain: float, tile_key: int,
                 cfg: StepConfig, big_endian: bool = False,
-                n_valid: Optional[int] = None):
-    """K2: launch the finish kernel on the current stream. Same contract
-    as ``finish_reference``: (wire bytes (n*C*bps,) uint8, peak f32 0-d);
-    raises if the launch fails."""
+                n_valid: Optional[int] = None,
+                run_frames: Optional[int] = None):
+    """K2 "from z": launch the finish kernel on the current stream. Same
+    contract as ``finish_reference``: (wire bytes (n*C*bps,) uint8, peak
+    f32 0-d); raises if the launch fails. `run_frames` overrides the
+    kernel's frames per run (a power of two >= 16)."""
     lib = kernels.load()
     if z.dtype != torch.float32 or z.dim() != 2 or not z.is_contiguous():
         raise ValueError(f"want contiguous (C, n) f32, got {z.dtype} "
@@ -638,23 +684,14 @@ def finish_cuda(z: torch.Tensor, gain: float, tile_key: int,
     out = torch.empty(n * c * bytes_per_sample(cfg.bit_depth),
                       dtype=torch.uint8, device=z.device)
     peak = torch.zeros(1, dtype=torch.float32, device=z.device)
-    p = kernels.FinishParams()
-    p.n_frames = n
-    p.n_valid = n if n_valid is None else max(0, min(int(n_valid), n))
-    p.channels = c
-    p.gain = gain
-    p.bit_depth = cfg.bit_depth
-    p.dither = _DITHER_CODE[cfg.dither]
-    p.key0 = tile_key & 0xFFFFFFFF
-    p.key1 = (tile_key >> 32) & 0xFFFFFFFF
-    p.big_endian = int(big_endian)
+    p = finish_params(n, c, gain, tile_key, cfg, big_endian, n_valid,
+                      run_frames)
     stream = torch.cuda.current_stream(z.device).cuda_stream
     rc = lib.dsd2dxd_finish(z.data_ptr(), out.data_ptr(), peak.data_ptr(),
                             ctypes.byref(p), stream)
     if rc != 0:
         raise RuntimeError(f"finish (K2) launch failed: CUDA error {rc}")
-    with _launch_lock:
-        MODE_LAUNCHES["K2"] += 1
+    count_launch("K2")
     return out, peak[0]
 
 

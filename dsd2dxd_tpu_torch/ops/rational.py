@@ -10,11 +10,21 @@ Per tile:
 
 1. head: K1e (``fused.fused_head_cuda``), the fused decimation kernel in
    its planar f32 mode, at gain 1 with no dither -> (C, n_base) f32;
-2. tail: the ×160/147 stage as one banded fp32 ``torch.matmul``
-   (``rational_tail``), as the JAX package leaves it to XLA outside any
-   kernel -> (C, n_out) f32, n_out = n_base * 160 / 147;
-3. finish: K2 (``fused.finish_cuda``): level gain, the peak over the first
-   n_valid final frames, dither, quantization and the wire bytes.
+2. tail and finish: K2 "from the head's samples" (``finish_tail_cuda``,
+   ``csrc/finish.cu``): the ×160/147 stage out of shared memory -- every
+   final sample the sum of its phase's T band entries (``tail_table``) in
+   ``plan.tree_sum`` order -- then level gain, the peak over the first
+   n_valid final frames, dither, quantization and the wire bytes, n_out =
+   n_base * 160 / 147 frames. The (C, n_out) f32 samples between the two
+   are never written.
+
+The plain version of 2 is ``rational_tail_reference`` (the same T-tap
+tree sums as gathers) then ``fused.finish_reference``; the kernel is
+bit-equal to it. ``rational_tail`` computes the same stage as one dense
+banded fp32 ``torch.matmul``, as the JAX package leaves it to XLA: the
+step does not call it; it stays as the tail's library call, which
+``chip_smoke.py`` times beside the kernel and the tests hold the plain
+version against (its sums run in another order: within 2e-6).
 
 The level gain, the peak and the dither act on the final samples; the head
 draws no noise, so its Philox stream and K2's cannot collide (the JAX
@@ -22,14 +32,16 @@ argument of ``make_finish_planes``). The streaming state is (the head's
 halo bytes, primed with the DSD idle byte as ``fused.init_fused_halo``;
 the tail's history, the last p_in = 147 head samples, primed with zeros
 as the JAX ``init_phase_hists``). A CUDA tensor launches K1e and K2 or
-raises; a CPU tensor runs their plain versions (``fused_decim_cascade``
-and ``finish_reference``).
+raises; a CPU tensor runs their plain versions (``fused_decim_cascade``,
+``rational_tail_reference`` and ``finish_reference``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Optional, Sequence
 
 import numpy as np
@@ -37,14 +49,21 @@ import torch
 
 from dsd2dxd_tpu_torch.filters.design import Stage
 from dsd2dxd_tpu_torch.formats.dsd_types import DitherType
+from dsd2dxd_tpu_torch.containers.pack import bytes_per_sample
 from dsd2dxd_tpu_torch.utils.errors import ConfigError
+from dsd2dxd_tpu_torch import kernels
 from dsd2dxd_tpu_torch.ops import fused
 from dsd2dxd_tpu_torch.ops.plan import (
     build_plan,
     params_from_chain,
     plan_banded_natural,
+    tree_sum,
 )
 from dsd2dxd_tpu_torch.ops.resample import StepConfig
+
+TAIL_BLOCKS = 4     # band blocks per run of K2; TAIL_B in csrc/finish.cu
+TAIL_TAPS = (16, 18, 19)  # entries per phase K2 has a case for, there too
+_TAIL_MAX_SMEM = 227 * 1024 - 256  # a block's dynamic shared memory there
 
 
 def rational_head_len(chain: Sequence[Stage]) -> Optional[int]:
@@ -76,6 +95,31 @@ class RationalPlan:
     def unit_bits(self) -> int:
         """Input bits per band block: a tile is a whole number of them."""
         return self.p_in * self.r_head
+
+    @cached_property
+    def table(self) -> tuple[np.ndarray, np.ndarray]:
+        """``tail_table`` of the band."""
+        return tail_table(self.band)
+
+
+def tail_table(band: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The band by output phase: (offs (p_out,) int32, coefs (p_out, T)
+    f32), coefs[rho] = band[rho, offs[rho]:offs[rho] + T] with T the
+    largest span from a row's first nonzero to its last (16, 18 or 19
+    for the cached chains). offs[rho] is the row's first nonzero, moved
+    down where the T entries would pass the band's end; the other
+    entries of a shorter row are the band's zeros, so every nonzero of
+    the band is in the table exactly once."""
+    nz = band != 0
+    if not nz.any(axis=1).all():
+        raise ConfigError("a phase of the band has no entry")
+    width = band.shape[1]
+    first = nz.argmax(axis=1)
+    last = width - 1 - nz[:, ::-1].argmax(axis=1)
+    n_taps = int((last - first + 1).max())
+    offs = np.minimum(first, width - n_taps).astype(np.int32)
+    coefs = np.stack([band[rho, o:o + n_taps] for rho, o in enumerate(offs)])
+    return offs, np.ascontiguousarray(coefs, dtype=np.float32)
 
 
 def rational_plan(chain: Sequence[Stage]) -> RationalPlan:
@@ -142,6 +186,120 @@ def rational_tail(y: torch.Tensor, hist: torch.Tensor, band_t: torch.Tensor,
     return z.reshape(c, -1), yr[:, -1, :].clone()
 
 
+def rational_tail_reference(y: torch.Tensor, hist: torch.Tensor,
+                            rp: RationalPlan
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the tail inside K2 "from the head's samples":
+    the ×160/147 stage on (C, n) head samples, as ``rational_tail``, but
+    every output the sum of its phase's T table entries times the window
+    from offs[rho] on, the products added in ``plan.tree_sum`` order --
+    T gathers of (C, K, 160), the kernel's arithmetic exactly. Returns
+    ((C, n * p_out / p_in) f32, new history)."""
+    c, n = y.shape
+    p = hist.shape[1]
+    if n % p:
+        raise ValueError(f"{n} head samples are not whole blocks of {p}")
+    offs, coefs = rp.table
+    idx = torch.from_numpy(offs.astype(np.int64)).to(y.device)
+    h = torch.from_numpy(coefs).to(y.device)
+    w = torch.cat([hist[:, p - rp.nhist:], y], dim=1).unfold(
+        1, p + rp.nhist, p)  # (C, K, nhist + p_in), a view
+    z = tree_sum(w.index_select(2, idx + t) * h[:, t]
+                 for t in range(h.shape[1]))
+    return z.reshape(c, -1), y[:, n - p:].clone()
+
+
+@dataclass(frozen=True)
+class TailTable:
+    """``tail_table`` on the card as K2 reads it: rows of `stride` floats
+    (odd, so that a warp's 32 phases fall in 32 banks of shared memory),
+    zero-padded."""
+
+    coefs: torch.Tensor  # (p_out * stride,) f32
+    offs: torch.Tensor   # (p_out,) int32
+    n_taps: int
+    stride: int
+
+
+def kernel_table(rp: RationalPlan, device=None) -> TailTable:
+    offs, coefs = rp.table
+    n_taps = coefs.shape[1]
+    if n_taps not in TAIL_TAPS:
+        raise ConfigError(f"the finish kernel takes {TAIL_TAPS} band entries "
+                          f"per phase (the cached 48k chains'), not {n_taps}")
+    stride = n_taps | 1
+    padded = np.zeros((coefs.shape[0], stride), dtype=np.float32)
+    padded[:, :n_taps] = coefs
+    return TailTable(coefs=torch.from_numpy(padded.reshape(-1)).to(device),
+                     offs=torch.from_numpy(offs).to(device),
+                     n_taps=n_taps, stride=stride)
+
+
+def tail_window_stride(nhist: int) -> int:
+    """Floats per channel of K2's window of a run: nhist rounded up to 4,
+    so that the run's own samples land 16-byte aligned, then the
+    TAIL_BLOCKS band blocks."""
+    return -(-nhist // 4) * 4 + 147 * TAIL_BLOCKS
+
+
+def finish_tail_cuda(y: torch.Tensor, hist: torch.Tensor, table: TailTable,
+                     rp: RationalPlan, gain: float, tile_key: int,
+                     cfg: StepConfig, big_endian: bool = False,
+                     n_valid: Optional[int] = None):
+    """K2 "from the head's samples": launch the finish kernel's fused
+    mode on the current stream, on the (C, n) f32 head samples, n whole
+    band blocks, and the (C, p_in) history. Same result as
+    ``rational_tail_reference`` then ``fused.finish_reference``: (wire
+    bytes (n_out*C*bps,) uint8, peak f32 0-d over the first n_valid of
+    the n_out = n * p_out / p_in final frames); raises if the launch
+    fails."""
+    lib = kernels.load()
+    p_in, p_out = rp.p_in, rp.p_out
+    if (p_in, p_out) != (147, 160):
+        raise ConfigError(f"the finish kernel runs the ×160/147 stage, not "
+                          f"×{p_out}/{p_in}")
+    if (y.dtype != torch.float32 or y.dim() != 2 or not y.is_contiguous()
+            or y.shape[1] % p_in or y.shape[1] == 0
+            or hist.dtype != torch.float32 or not hist.is_contiguous()
+            or tuple(hist.shape) != (y.shape[0], p_in)
+            or not (y.device == hist.device == table.coefs.device
+                    == table.offs.device)):
+        raise ValueError(
+            f"want contiguous f32 y (C, whole blocks of {p_in}) and hist "
+            f"(C, {p_in}) on the table's device, got {y.dtype}"
+            f"{tuple(y.shape)}@{y.device} and {hist.dtype}"
+            f"{tuple(hist.shape)}@{hist.device}")
+    c, n = y.shape
+    bps = bytes_per_sample(cfg.bit_depth)
+    n_blocks = n // p_in
+    n_out = n_blocks * p_out
+    p = fused.finish_params(n_out, c, gain, tile_key, cfg, big_endian,
+                            n_valid)
+    p.n_blocks = n_blocks
+    p.nhist = rp.nhist
+    p.n_taps = table.n_taps
+    p.coef_stride = table.stride
+    p.win_stride = tail_window_stride(rp.nhist)
+    p.smem_bytes = (4 * (-(-p_out * table.stride // 4) * 4 + p_out
+                         + 2 * c * p.win_stride)
+                    + p_out * TAIL_BLOCKS * c * bps)
+    if p.smem_bytes > _TAIL_MAX_SMEM:
+        raise ConfigError(f"{c} channels need {p.smem_bytes} bytes of shared "
+                          f"memory per block of the finish kernel; it has "
+                          f"{_TAIL_MAX_SMEM}")
+    out = torch.empty(n_out * c * bps, dtype=torch.uint8, device=y.device)
+    peak = torch.zeros(1, dtype=torch.float32, device=y.device)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    rc = lib.dsd2dxd_finish_tail(
+        y.data_ptr(), hist.data_ptr(), table.coefs.data_ptr(),
+        table.offs.data_ptr(), out.data_ptr(), peak.data_ptr(),
+        ctypes.byref(p), stream)
+    if rc != 0:
+        raise RuntimeError(f"finish (K2t) launch failed: CUDA error {rc}")
+    fused.count_launch("K2t")
+    return out, peak[0]
+
+
 def make_rational_step(chain: Sequence[Stage], cfg: StepConfig, device,
                        big_endian: bool = False):
     """The 48k-family step for `chain` and `cfg` (16/20/24-bit with
@@ -152,8 +310,8 @@ def make_rational_step(chain: Sequence[Stage], cfg: StepConfig, device,
          uint8, peak f32 0-d, (new halo, new hist))
 
     ``n_valid`` bounds the final frames the peak covers (all for None). A
-    CUDA tensor launches K1e and K2 (or raises); a CPU tensor runs their
-    plain versions. Nothing falls back.
+    CUDA tensor launches K1e and K2 "from the head's samples" (or raises);
+    a CPU tensor runs their plain versions. Nothing falls back.
     """
     chain = tuple(chain)
     rp = rational_plan(chain)
@@ -171,7 +329,7 @@ def make_rational_step(chain: Sequence[Stage], cfg: StepConfig, device,
         device = torch.device("cuda", torch.cuda.current_device())
     taps = [p.taps.to(device) for p in params_from_chain(head)]
     coefs = fused.kernel_coefs(head, device)
-    band_t = torch.from_numpy(rp.band.T.copy()).to(device)
+    table = kernel_table(rp, device) if device.type == "cuda" else None
     gain = fused._gain32(cfg)
     hist_shape = (cfg.channels, rp.p_in)
 
@@ -196,12 +354,12 @@ def make_rational_step(chain: Sequence[Stage], cfg: StepConfig, device,
             raise ValueError(f"step built for {device}, got {x_u8.device}")
         if x_u8.is_cuda:
             y = fused.fused_head_cuda(x_u8, halo, coefs, head)
-            z, new_hist = rational_tail(y, hist, band_t, rp.nhist)
-            wire, peak = fused.finish_cuda(z, gain, tile_key, cfg,
-                                           big_endian, n_valid)
+            wire, peak = finish_tail_cuda(y, hist, table, rp, gain,
+                                          tile_key, cfg, big_endian, n_valid)
+            new_hist = y[:, y.shape[1] - rp.p_in:].clone()
         elif x_u8.device.type == "cpu":
             y = fused.fused_decim_cascade(x_u8, halo, taps, head, 1.0)
-            z, new_hist = rational_tail(y, hist, band_t, rp.nhist)
+            z, new_hist = rational_tail_reference(y, hist, rp)
             wire, peak = fused.finish_reference(z, gain, tile_key, cfg,
                                                 big_endian, n_valid)
         else:

@@ -13,8 +13,8 @@ Pipeline on a CUDA device, per tile t (ring of MAX_PENDING_DRAINS + 1
 slots): the host reads and bit-normalises the tile into a pinned buffer;
 a copy stream uploads it (``non_blocking``) and records an event; the
 compute stream waits on that event, launches the fused decimation kernel
-(48k family: the head kernel K1e, the tail's matmul and the finish kernel
-K2) and copies the wire bytes and the peak back into pinned buffers; one
+(48k family: the head kernel K1e, then the finish kernel K2 from the
+head's samples, the ×160/147 tail inside it) and copies the wire bytes and the peak back into pinned buffers; one
 drain thread waits for that copy and writes ``bytes[:n_valid * C * bps]``
 in stream order, while the main thread already reads tile t+1. At most
 MAX_PENDING_DRAINS drains are outstanding. On the CPU (only when asked

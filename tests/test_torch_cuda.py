@@ -192,7 +192,21 @@ def test_mode_counts_on_card(cuda_device):
     step(x, fused.init_fused_halo(chain, 2, cuda_device), 1)
     after = fused.MODE_LAUNCHES
     assert {k: after[k] - before[k] for k in after} == {
-        "K1a": 0, "K1b": 0, "K1c": 1, "K1d": 1, "K1e": 0, "K2": 0}
+        "K1a": 0, "K1b": 0, "K1c": 1, "K1d": 1, "K1e": 0, "K2": 0, "K2t": 0}
+    chain = get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD64, 384000)
+    rp = rational.rational_plan(chain)
+    cfg = StepConfig(channels=2, tile_bytes=rp.unit_bits // 8 * 8,
+                     bit_depth=24, dither=DitherType.TPDF, level_db=0.0)
+    x = torch.full((2, cfg.tile_bytes), 0x69, dtype=torch.uint8,
+                   device=cuda_device)
+    before = dict(fused.MODE_LAUNCHES)
+    wire, _p, _s = rational.make_rational_step(chain, cfg, cuda_device)(
+        x, rational.init_rational_state(chain, 2, cuda_device), 1)
+    z = torch.zeros(2, 1000, device=cuda_device)
+    fused.finish_cuda(z, 1.0, 1, cfg)
+    assert wire.numel() == 8 * 160 * 2 * 3
+    assert {k: after[k] - before[k] for k in after} == {
+        "K1a": 0, "K1b": 0, "K1c": 0, "K1d": 0, "K1e": 1, "K2": 1, "K2t": 1}
 
 
 @pytest.mark.parametrize("cell", ["E", "div16", "div128"])
@@ -290,7 +304,7 @@ def test_engine_on_card_equals_cpu_deep_20bit(cuda_device, tmp_path,
     assert np.abs(da - db).max() <= 1
 
 
-# -- the 48k family: K1e (planar f32 head), the tail, K2 (finish) ------------
+# -- the 48k family: K1e (planar f32 head), K2 (finish) in its two modes ------
 
 CHAINS_48K = [(FilterType.EQUIRIPPLE, rate, out)
               for rate in (DsdRate.DSD64, DsdRate.DSD128, DsdRate.DSD256)
@@ -360,10 +374,93 @@ def test_finish_kernel_matches_plain_on_card(cuda_device, bits, dither,
         assert np.abs(a - b).max() <= (5 if dither is DitherType.NONE else 1)
 
 
+@pytest.mark.parametrize("channels,n", [(1, 70001), (3, 2 * 1024 + 513), (6, 2 * 512 + 1),
+                                        (13, 256 * 2 + 5)])
+def test_finish_kernel_channel_counts_on_card(cuda_device, channels, n):
+    """K2 "from z" at other channel counts (13: runs of 256 frames, so
+    that two staged runs fit shared memory) and odd lengths: bit-equal to
+    finish_reference at 24-bit TPDF and f32 FPD in both byte orders, peak
+    equal."""
+    z = torch.from_numpy(np.random.default_rng(39).uniform(
+        -1.2, 1.2, (channels, n)).astype(np.float32)).to(cuda_device)
+    for bits, dither in ((24, DitherType.TPDF), (32, DitherType.FPD)):
+        cfg = StepConfig(channels=channels, tile_bytes=8, bit_depth=bits,
+                         dither=dither, level_db=-1.5)
+        gain = fused._gain32(cfg)
+        for be in (False, True):
+            wk, pk = fused.finish_cuda(z, gain, 11, cfg, be, n - 7)
+            wr, pr = fused.finish_reference(z, gain, 11, cfg, be, n - 7)
+            torch.cuda.synchronize()
+            assert torch.equal(wk, wr), (bits, be)
+            assert float(pk) == float(pr)
+
+
+def _tail_against_plain(dev, rp, channels, blocks, cfg, big_endian, seed):
+    """K2 "from the head's samples" against rational_tail_reference then
+    finish_reference on two streamed tiles, the first with a non-zero
+    history, n_valid inside a run: wire bytes and peak equal; one K2t
+    launch each."""
+    table = rational.kernel_table(rp, dev)
+    gain = fused._gain32(cfg)
+    rng = np.random.default_rng(seed)
+    hist = torch.from_numpy(rng.uniform(-1, 1, (channels, 147)).astype(
+        np.float32)).to(dev)
+    n_valid = 160 * blocks - 250
+    for t in range(2):
+        y = rng.uniform(-1.1, 1.1, (channels, 147 * blocks)).astype(
+            np.float32)
+        y[:, -147:] *= 3.0  # the loudest frames lie past n_valid
+        y = torch.from_numpy(y).to(dev)
+        key = philox.tile_key(46, t)
+        before = dict(fused.MODE_LAUNCHES)
+        wk, pk = rational.finish_tail_cuda(y, hist, table, rp, gain, key, cfg,
+                                           big_endian, n_valid)
+        assert fused.MODE_LAUNCHES["K2t"] == before["K2t"] + 1
+        assert fused.MODE_LAUNCHES["K2"] == before["K2"]
+        z, hist = rational.rational_tail_reference(y, hist, rp)
+        wr, pr = fused.finish_reference(z, gain, key, cfg, big_endian,
+                                        n_valid)
+        torch.cuda.synchronize()
+        assert torch.equal(wk, wr)
+        assert float(pk) == float(pr)
+        if t == 0:
+            assert float(pr) < float((z * gain).abs().max())
+
+
+@pytest.mark.parametrize("bits,dither", EPILOGUES)
+@pytest.mark.parametrize("big_endian", [False, True], ids=["LE", "BE"])
+def test_finish_tail_kernel_matches_plain_on_card(cuda_device, bits, dither,
+                                                  big_endian):
+    """The fused mode on the three tails (T = 19, 18, 16), stereo, 203
+    band blocks (a ragged last run of 3): bit-equal to its plain version
+    at every epilogue, dithered ones included (the same sums in the same
+    order, the same Philox counter and key)."""
+    for out in (96000, 192000, 384000):
+        rp = rational.rational_plan(get_chain(FilterType.EQUIRIPPLE,
+                                              DsdRate.DSD64, out))
+        cfg = StepConfig(channels=2, tile_bytes=8, bit_depth=bits,
+                         dither=dither, level_db=-1.5)
+        _tail_against_plain(cuda_device, rp, 2, 203, cfg, big_endian, out)
+
+
+@pytest.mark.parametrize("channels,blocks", [(1, 9), (1, 1), (3, 14), (6, 5)])
+def test_finish_tail_kernel_channel_counts_on_card(cuda_device, channels,
+                                                   blocks):
+    """The fused mode at other channel counts (mono runs half a block of
+    threads; 3 and 6 loop over their items; odd row lengths leave y's
+    rows off 16-byte boundaries), 24-bit TPDF and f32 FPD."""
+    rp = rational.rational_plan(get_chain(FilterType.EQUIRIPPLE,
+                                          DsdRate.DSD128, 192000))
+    for bits, dither in ((24, DitherType.TPDF), (32, DitherType.FPD)):
+        cfg = StepConfig(channels=channels, tile_bytes=8, bit_depth=bits,
+                         dither=dither, level_db=-1.5)
+        _tail_against_plain(cuda_device, rp, channels, blocks, cfg, False, 47)
+
+
 def test_rational_step_on_card_equals_plain(cuda_device):
-    """The whole step (K1e, the fp32 matmul tail, K2) against its plain
-    path on the card, three streamed tiles, 24-bit TPDF: within 1 LSB,
-    the same state."""
+    """The whole step (K1e, then K2 "from the head's samples") against
+    its plain path on the card, three streamed tiles, 24-bit TPDF: wire
+    bytes and peak equal, the same state."""
     chain = get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD64, 192000)
     rp = rational.rational_plan(chain)
     tile = rp.unit_bits // 8 * 4
@@ -373,7 +470,6 @@ def test_rational_step_on_card_equals_plain(cuda_device):
     head = chain[:rp.n_head]
     taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32),
                          device=cuda_device) for s in head]
-    band_t = torch.from_numpy(rp.band.T.copy()).to(cuda_device)
     state = rational.init_rational_state(chain, 2, cuda_device)
     rng = np.random.default_rng(33)
     for t in range(3):
@@ -382,11 +478,11 @@ def test_rational_step_on_card_equals_plain(cuda_device):
         key = philox.tile_key(1, t)
         wk, pk, new = step(x, state, key)
         y = fused.fused_decim_cascade(x, state[0], taps, head, 1.0)
-        z, hist = rational.rational_tail(y, state[1], band_t, rp.nhist)
+        z, hist = rational.rational_tail_reference(y, state[1], rp)
         wr, pr = fused.finish_reference(z, fused._gain32(cfg), key, cfg)
         torch.cuda.synchronize()
-        assert np.abs(_decode(wk) - _decode(wr)).max() <= 1
-        assert abs(float(pk) - float(pr)) <= 1e-6
+        assert torch.equal(wk, wr)
+        assert float(pk) == float(pr)
         assert torch.equal(new[1], hist)
         state = new
 
@@ -397,21 +493,13 @@ def test_rational_step_on_card_equals_plain(cuda_device):
 ], ids=["96k-24bit", "config4-192k-f32"])
 def test_engine_48k_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch,
                                        rate, out, bits, dither, output):
+    """The card and the CPU sum every tap in the same order (K1e and its
+    cascade, K2's band sums and rational_tail_reference) and draw the
+    same Philox noise, so the two files are equal byte for byte, 24-bit
+    TPDF and f32 FPD alike."""
     a, b = _engine_equal(cuda_device, tmp_path, monkeypatch, rate, out,
                          bits, dither, output)
-    assert len(a) == len(b)
-    be = output is not OutputType.WAV
-    head = a.index(b"SSND") + 16 if be else 44
-    assert a[:head] == b[:head]
-    if bits == 32:
-        da = np.frombuffer(a[head:], dtype=">f4").astype(np.float64)
-        db = np.frombuffer(b[head:], dtype=">f4").astype(np.float64)
-        # matmuls of the card and the CPU sum in other orders; FPD 1 ulp
-        assert np.abs(da - db).max() <= 1e-6
-    else:
-        da = _decode(torch.frombuffer(bytearray(a[head:]), dtype=torch.uint8))
-        db = _decode(torch.frombuffer(bytearray(b[head:]), dtype=torch.uint8))
-        assert np.abs(da - db).max() <= 1
+    assert a == b
 
 
 # -- the floor probes: P1 (dmabench) and P2 (floorstrip) ---------------------

@@ -446,3 +446,119 @@ def test_cli_48k_float_aifc(tone_dsd64_stereo_dsf, tmp_path,
     spec = np.abs(np.fft.rfft(v[960:, 0].astype(np.float64)))
     freqs = np.fft.rfftfreq(len(v) - 960, 1 / 192000)
     assert abs(freqs[np.argmax(spec)] - 1000.0) < 5.0
+
+
+# -- .dff containers, raw planar LSB-first files, a batch on worker threads ---
+
+def _planes(dsf: Path) -> np.ndarray:
+    """The .dsf's (2, n) stream bytes, MSB-first."""
+    return np.frombuffer(_raw_interleaved(dsf), dtype=np.uint8).reshape(
+        -1, 2).T.copy()
+
+
+def _both_wavs(make, tmp_path, rate):
+    """The 24-bit NONE WAV of the port's Converter (on the CPU) and of the
+    JAX Converter, each built by make(cls, out_dir, **device): headers
+    equal, the same length, samples within 5 LSB past the first 5 ms
+    (idle-primed against zero-primed)."""
+    outs = []
+    for cls, name, kw in ((TConverter, "t", dict(device="cpu")),
+                          (JConverter, "j", {})):
+        d = tmp_path / name
+        d.mkdir()
+        conv = make(cls, d, **kw)
+        conv.do_conversion()
+        outs.append(conv.output_path().read_bytes())
+    t, j = outs
+    assert t[:44] == j[:44] and len(t) == len(j)
+    tv, jv = _s24(t[44:]), _s24(j[44:])
+    skip = rate // 200
+    assert np.abs(tv[skip:] - jv[skip:]).max() <= 5
+    assert np.abs(tv).max() > 1 << 21
+    return tv
+
+
+def _small_tiles_for(request, rate):
+    request.getfixturevalue("small_tiles" if rate % 44100 == 0
+                            else "small_48k_tiles")
+
+
+@pytest.mark.parametrize("rate", [352800, 96000])
+def test_dff_file_matches_jax_converter(tone_dsd64_stereo_dsf, tmp_path,
+                                        request, rate):
+    """A .dff container (interleaved MSB-first bytes) through the port's
+    Converter against the JAX Converter, at 352.8k (÷8) and at 96k (the
+    ÷32 head and the ×160/147 step)."""
+    from dsd2dxd_tpu_torch.formats.dff import write_dff
+
+    _small_tiles_for(request, rate)
+    src = tmp_path / "tone.dff"
+    write_dff(src, _planes(tone_dsd64_stereo_dsf), 2_822_400)
+
+    def make(cls, d, **kw):
+        return cls.from_container(
+            bit_depth=24, output=OutputType.WAV, level_db=-1.0,
+            output_rate=rate, out_dir=d, dither=DitherType.NONE,
+            filt=FilterType.EQUIRIPPLE, append_rate=False, base_dir=tmp_path,
+            input_path=src, **kw)
+
+    tv = _both_wavs(make, tmp_path, rate)
+    assert tv.shape == (rate // 2, 2)
+
+
+def test_raw_planar_lsb_file_matches_jax_converter(tone_dsd64_stereo_dsf,
+                                                   tmp_path, small_tiles):
+    """A raw .dsd file of planar 4096-byte blocks with LSB-first bits
+    (`-f P -e L`) through the port's Converter against the JAX one."""
+    planes = _planes(tone_dsd64_stereo_dsf)
+    planes = planes[:, :planes.shape[1] // 4096 * 4096]
+    rev = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)], np.uint8)
+    src = tmp_path / "tone.dsd"
+    src.write_bytes(rev[planes].reshape(2, -1, 4096).transpose(1, 0, 2)
+                    .tobytes())
+
+    def make(cls, d, **kw):
+        return cls.new(
+            bit_depth=24, output=OutputType.WAV, level_db=-1.0,
+            output_rate=352800, out_dir=d, dither=DitherType.NONE,
+            fmt=FmtType.PLANAR, endian=Endianness.LSB_FIRST,
+            input_rate=DsdRate.DSD64, block_size=4096, channels=2,
+            filt=FilterType.EQUIRIPPLE, append_rate=False, base_dir=tmp_path,
+            input_path=src, **kw)
+
+    tv = _both_wavs(make, tmp_path, 352800)
+    assert tv.shape == (planes.shape[1], 2)
+
+
+@pytest.mark.parametrize("rate", [352800, 96000])
+def test_cli_batch_on_two_worker_threads(tone_dsd64_stereo_dsf, tmp_path,
+                                         request, monkeypatch, rate):
+    """Three short files converted as one batch by two worker threads on
+    one device (they share the cached step) come out byte-equal to the
+    same files converted one at a time, at TPDF (a file's noise depends
+    on the file alone)."""
+    import dsd2dxd_tpu_torch.cli.dsd2dxd as tcli
+    from dsd2dxd_tpu_torch.formats.dsf import write_dsf
+
+    _small_tiles_for(request, rate)
+    planes = _planes(tone_dsd64_stereo_dsf)
+    n = planes.shape[1]
+    srcs = []
+    for i, (a, b) in enumerate(((0, n // 3), (n // 5, n // 2), (n // 2, n))):
+        srcs.append(tmp_path / f"part{i}.dsf")
+        write_dsf(srcs[-1], planes[:, a:b], 2_822_400, lsb_first=True)
+    batch, single = tmp_path / "batch", tmp_path / "single"
+    batch.mkdir()
+    single.mkdir()
+    args = ["-o", "w", "-r", str(rate), "-q"]
+    monkeypatch.setattr(tcli, "worker_count", lambda: 2)
+    assert tcli.run(args + ["-p", str(batch)] + [str(s) for s in srcs],
+                    device="cpu") == 0
+    monkeypatch.setattr(tcli, "worker_count", lambda: 1)
+    for s in srcs:
+        assert tcli.run(args + ["-p", str(single), str(s)],
+                        device="cpu") == 0
+    for s in srcs:  # -p mirrors the inputs' tree under the output directory
+        a, = (f.read_bytes() for f in batch.rglob(f"{s.stem}.wav"))
+        b, = (f.read_bytes() for f in single.rglob(f"{s.stem}.wav"))
+        assert len(a) > 44 + 6 * rate // 10 and a == b

@@ -331,3 +331,72 @@ def test_blocksweep_needs_a_card(monkeypatch):
         blocksweep.main([])
     for depth, key in blocksweep.CHAINS.items():
         assert fused.decimation(get_chain(*key)) == depth
+
+
+def test_finishsweep_needs_a_card(monkeypatch):
+    """The frames-per-run sweep times K2 "from z" on the card: it refuses
+    the CPU, and without a card it raises. The run length in use is one of
+    its candidates, and a wide file halves it until two staged runs fit."""
+    from dsd2dxd_tpu_torch.formats.dsd_types import DitherType
+    from dsd2dxd_tpu_torch.ops.resample import StepConfig
+    from dsd2dxd_tpu_torch.tools import finishsweep
+
+    with pytest.raises(ConfigError):
+        finishsweep.main(["--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ConfigError):
+        finishsweep.main([])
+    assert fused.FINISH_RUN_FRAMES in finishsweep.FRAMES
+    assert finishsweep.fastest({512: {"24N": 0.06, "24T": 0.09},
+                                1024: {"24N": 0.05, "24T": 0.09},
+                                2048: {"24N": 0.06, "24T": 0.08}}) == 2048
+    assert finishsweep.fastest({64: {"24N": 0.05}, 128: {"24N": 0.07}}) == 64
+    cfg = StepConfig(channels=2, tile_bytes=8, bit_depth=24,
+                     dither=DitherType.TPDF, level_db=0.0)
+    for channels, run_frames, want in ((2, None, 2048), (2, 64, 64),
+                                       (3, None, 1024), (6, None, 512),
+                                       (13, None, 256), (320, None, 16)):
+        p = fused.finish_params(1000, channels, 1.0, 7, cfg, False, 900,
+                                run_frames)
+        assert (p.run_frames, p.n_frames, p.n_valid) == (want, 1000, 900)
+        assert 2 * p.run_frames * channels * 4 <= 40 * 1024
+    with pytest.raises(ConfigError):
+        fused.finish_params(1000, 321, 1.0, 7, cfg, False, None)
+
+
+def test_sasscount_counts_by_kernel():
+    """tools/sasscount.py on a cut of cuobjdump's output: instructions per
+    kernel by opcode (predicated ones too, hex lines not), the kernels'
+    names demangled, and one Philox call as the TPDF kernel's excess over
+    the undithered one's per sample."""
+    from dsd2dxd_tpu_torch.tools import sasscount
+
+    def fn(name, ops):
+        lines = [f"\t\tFunction : {name}", "\t.headerflags\t@\"EF_CUDA_SM90\""]
+        for i, op in enumerate(ops):
+            lines.append(f"        /*{16 * i:04x}*/                   {op} ;"
+                         f"   /* 0x000000ff00007a02 */")
+            lines.append("                                             "
+                         "          /* 0x000fe20000000f00 */")
+        return "\n".join(lines)
+
+    none = "_Z13finish_kernelILi24ELi0EEvPKfPhPf12FinishParams"
+    tpdf = "_Z13finish_kernelILi24ELi1EEvPKfPhPf12FinishParams"
+    body = ["LDG.E.EF.128 R8, desc[UR30][R8.64]", "FMUL R9, R9, UR47",
+            "@!P0 BRA 0xb30", "STS.U8 [R3], R2"]
+    philox = ["IMAD.WIDE.U32 R14, R28, -0x2daee0ad, RZ",
+              "LOP3.LUT R18, R23, UR22, R14, 0x96, !PT",
+              "@P1 IMAD.HI.U32 R15, R15, -0x2daee0ad, RZ",
+              "I2FP.F32.U32 R32, R32"] * 10
+    counts = sasscount.count_sass(fn(none, body) + "\n" + fn(tpdf,
+                                                            body + philox))
+    assert set(counts) == {"finish_kernel<24,0>", "finish_kernel<24,1>"}
+    assert counts["finish_kernel<24,0>"]["all"] == 4
+    assert counts["finish_kernel<24,0>"]["BRA"] == 1
+    t = counts["finish_kernel<24,1>"]
+    assert (t["all"], t["IMAD"], t["LOP3"], t["LDG"], t["STS"]) == (
+        44, 20, 10, 1, 1)
+    assert (t["PHILOX_MUL"], t["XOR"]) == (20, 10)
+    assert counts["finish_kernel<24,0>"]["PHILOX_MUL"] == 0
+    assert sasscount.philox_per_sample(counts) == 10.0
+    assert sasscount.demangled("main") == "main"

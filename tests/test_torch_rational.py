@@ -1,6 +1,8 @@
 """The port's 48k-family step (dsd2dxd_tpu_torch/ops/rational.py and the
 K1e/K2 wrappers in ops/fused.py) on the CPU, against the JAX package: the
-×160/147 band and its tail, the finish (JAX ``make_finish_planes`` in
+×160/147 band, its table by phase and its tail (the plain version of the
+finish kernel's fused mode, a torch emulation of that kernel's block
+route, and the dense matmul), the finish (JAX ``make_finish_planes`` in
 interpret mode and ``finish_tile``), the whole step against the JAX
 ``make_fused_rational_step`` in interpret mode, the state handover, the
 dither statistics, the masked peak, the TF32 guard and the build digest.
@@ -27,7 +29,7 @@ from dsd2dxd_tpu_torch.formats.dsd_types import DitherType, DsdRate, FilterType
 from dsd2dxd_tpu_torch.ops import fused as tfused
 from dsd2dxd_tpu_torch.ops import philox
 from dsd2dxd_tpu_torch.ops import rational as trational
-from dsd2dxd_tpu_torch.ops.plan import state_from_jax
+from dsd2dxd_tpu_torch.ops.plan import state_from_jax, tree_sum
 from dsd2dxd_tpu_torch.ops.resample import StepConfig
 from dsd2dxd_tpu_torch.pipeline import engine as tengine
 from dsd2dxd_tpu_torch.utils.errors import ConfigError
@@ -159,6 +161,196 @@ def test_rational_tail_against_float64_oracle():
         yp, rp.p_in + rp.nhist, axis=1)[:, ::rp.p_in]
     oracle = (win @ rp.band.T.astype(np.float64)).reshape(2, -1)
     assert np.abs(z.numpy() - oracle).max() < 2e-6
+
+
+def _tail_oracle(y, hist, band, nhist):
+    """The band over the history and the samples in float64 numpy."""
+    p = hist.shape[1]
+    yp = np.concatenate([hist[:, p - nhist:], y], axis=1).astype(np.float64)
+    win = np.lib.stride_tricks.sliding_window_view(
+        yp, p + nhist, axis=1)[:, ::p]
+    return (win @ band.T.astype(np.float64)).reshape(y.shape[0], -1)
+
+
+@pytest.mark.parametrize("key", CHAINS_48K, ids=_id)
+def test_tail_table_holds_the_band(key):
+    """The table by phase: T the widest row of the band (16 at 384k, 18
+    at 192k, 19 at 96k), every row's T entries inside the band, the
+    entries past a shorter row zero, and every nonzero of the band in
+    the table exactly once (the table scattered back is the band). On
+    the card the rows have an odd stride, zero-padded."""
+    rp = trational.rational_plan(get_chain(*key))
+    offs, coefs = rp.table
+    width = rp.band.shape[1]
+    n_taps = {96000: 19, 192000: 18, 384000: 16}[key[2]]
+    assert coefs.shape == (160, n_taps) and coefs.dtype == np.float32
+    assert offs.shape == (160,) and offs.dtype == np.int32
+    assert width == 147 + rp.nhist and rp.nhist == n_taps - 1
+    assert offs.min() >= 0 and offs.max() + n_taps <= width
+    back = np.zeros_like(rp.band)
+    for rho, o in enumerate(offs):
+        back[rho, o:o + n_taps] = coefs[rho]
+        row = np.flatnonzero(rp.band[rho])
+        assert o <= row[0] and row[-1] < o + n_taps
+        assert n_taps - 1 <= len(row) <= n_taps
+    np.testing.assert_array_equal(back, rp.band)
+    assert np.count_nonzero(coefs) == np.count_nonzero(rp.band)
+    table = trational.kernel_table(rp)
+    assert table.n_taps == n_taps and table.stride % 2 == 1
+    assert table.stride in (n_taps, n_taps + 1)
+    rows = table.coefs.numpy().reshape(160, table.stride)
+    np.testing.assert_array_equal(rows[:, :n_taps], coefs)
+    assert not rows[:, n_taps:].any()
+    np.testing.assert_array_equal(table.offs.numpy(), offs)
+    assert trational.tail_window_stride(rp.nhist) % 4 == 0
+    assert (trational.tail_window_stride(rp.nhist)
+            >= rp.nhist + 147 * trational.TAIL_BLOCKS)
+
+
+def test_kernel_table_refuses_other_tap_counts():
+    """K2 has an unrolled case for the cached chains' 16, 18 and 19
+    entries per phase and no other: a band whose widest row has 17 (the
+    96k band with each row's first one or two entries removed) gets no
+    table for the card, while the plain version sums it all the same."""
+    import dataclasses
+
+    rp = trational.rational_plan(get_chain(FilterType.EQUIRIPPLE,
+                                           DsdRate.DSD64, 96000))
+    band = rp.band.copy()
+    for row in band:
+        nz = np.flatnonzero(row)
+        row[nz[:len(nz) - 17]] = 0.0
+    rp17 = dataclasses.replace(rp, band=band)
+    assert rp17.table[1].shape == (160, 17)
+    with pytest.raises(ConfigError, match="16, 18, 19"):
+        trational.kernel_table(rp17)
+    y = torch.from_numpy(np.random.default_rng(5).uniform(
+        -1, 1, (2, 147 * 3)).astype(np.float32))
+    z, _hist = trational.rational_tail_reference(y, torch.zeros(2, 147), rp17)
+    want = _tail_oracle(y.numpy(), np.zeros((2, 147)), band, rp.nhist)
+    np.testing.assert_allclose(z.numpy(), want, atol=2e-6)
+
+
+@pytest.mark.parametrize("key", CHAINS_48K, ids=_id)
+def test_tail_reference_matches_jax_oracle_and_matmul(key):
+    """rational_tail_reference (T-tap tree sums per phase) on three
+    streamed tiles with the history carried: within 2e-6 of JAX
+    stage_apply_rational_natural, of the float64 oracle and of
+    rational_tail (the dense matmul); all fp32 sums of the same 15-19
+    products in other orders. Histories equal."""
+    rp = trational.rational_plan(get_chain(*key))
+    plan = jphase.build_plan(_jchain(key)[-1], p_in=1)
+    band_t = torch.from_numpy(rp.band.T.copy())
+    rng = np.random.default_rng(41)
+    h_j = jphase.init_phase_hists((plan,), 2)[0]
+    h_t = torch.zeros(2, rp.p_in)
+    for _ in range(3):
+        y = rng.uniform(-1.0, 1.0, (2, 147 * 13)).astype(np.float32)
+        zj, h_j = jphase.stage_apply_rational_natural(
+            jnp.asarray(y), h_j, plan, jnp.asarray(rp.band), rp.nhist)
+        zo = _tail_oracle(y, h_t.numpy(), rp.band, rp.nhist)
+        zm, h_m = trational.rational_tail(torch.from_numpy(y), h_t, band_t,
+                                          rp.nhist)
+        zt, h_t = trational.rational_tail_reference(torch.from_numpy(y), h_t,
+                                                    rp)
+        assert zt.shape == (2, 160 * 13) and zt.dtype == torch.float32
+        assert np.abs(zt.numpy() - np.asarray(zj)).max() <= 2e-6
+        assert np.abs(zt.numpy() - zo).max() <= 2e-6
+        assert float((zt - zm).abs().max()) <= 2e-6
+        assert torch.equal(h_t, h_m)
+        np.testing.assert_array_equal(h_t.numpy(), np.asarray(h_j)[:, :, 0])
+    with pytest.raises(ValueError):
+        trational.rational_tail_reference(torch.zeros(2, 148), h_t, rp)
+
+
+def _emulate_tail_kernel(y, hist, rp, gain, key, cfg, big_endian, n_valid):
+    """The finish kernel's fused mode, block by block, in torch: a run of
+    TAIL_BLOCKS band blocks loads its window (the run's samples from slot
+    `pad` on, the nhist samples before them from y or, at the tile's
+    start, from the history), item (c, rho) sums phase rho of every band
+    block of the run from the table, the words go to the run's staging
+    buffer at ((160 b + rho) C + c) bps in wire order, and the run's
+    160 nb C bps bytes are flushed. Returns (wire bytes, peak)."""
+    offs, coefs = rp.table
+    n_taps = coefs.shape[1]
+    c, n = y.shape
+    blocks = n // 147
+    nb_run = trational.TAIL_BLOCKS
+    bps = {16: 2, 20: 3, 24: 3, 32: 4}[cfg.bit_depth]
+    pad = -(-rp.nhist // 4) * 4
+    stride = trational.tail_window_stride(rp.nhist)
+    h = torch.from_numpy(coefs)
+    base = torch.from_numpy(offs.astype(np.int64)) + (pad - rp.nhist)
+    idx = base[None, :] + 147 * torch.arange(nb_run)[:, None]  # (B, 160)
+    z = torch.full((c, 160 * blocks), float("nan"))
+    n_runs = -(-blocks // nb_run)
+    for r in range(n_runs):
+        nb = min(nb_run, blocks - r * nb_run)
+        s0 = 147 * nb_run * r
+        win = torch.zeros(c, stride)  # past the run's samples: never used
+        win[:, pad:pad + 147 * nb] = y[:, s0:s0 + 147 * nb]
+        for i in range(rp.nhist):
+            s = s0 - rp.nhist + i
+            win[:, pad - rp.nhist + i] = (y[:, s] if s >= 0
+                                          else hist[:, 147 + s])
+        v = tree_sum(win[:, idx + t] * h[:, t] for t in range(n_taps))
+        z[:, 640 * r:640 * r + 160 * nb] = v[:, :nb].reshape(c, -1)
+    yv = z * gain
+    words = tfused.epilogue_words(yv, key, cfg).numpy().astype(np.int64)
+    out = np.zeros(160 * blocks * c * bps, dtype=np.uint8)
+    for r in range(n_runs):
+        nb = min(nb_run, blocks - r * nb_run)
+        stage = np.zeros(640 * c * bps, dtype=np.uint8)
+        for ch in range(c):
+            for b in range(nb):
+                w = words[ch, 640 * r + 160 * b:640 * r + 160 * (b + 1)]
+                w = w & 0xFFFFFFFF
+                if big_endian:  # byte-swap, then down to the low bps bytes
+                    w = (((w & 0xFF) << 24) | ((w & 0xFF00) << 8)
+                         | ((w >> 8) & 0xFF00) | (w >> 24)) >> (32 - 8 * bps)
+                at = ((160 * b + np.arange(160)) * c + ch) * bps
+                for k in range(bps):
+                    stage[at + k] = (w >> (8 * k)) & 0xFF
+        nbytes = 160 * nb * c * bps
+        out[640 * r * c * bps:640 * r * c * bps + nbytes] = stage[:nbytes]
+    return torch.from_numpy(out), tfused.masked_peak(yv, n_valid)
+
+
+@pytest.mark.parametrize("big_endian", [False, True], ids=["LE", "BE"])
+@pytest.mark.parametrize("bits,dither,out_hz,blocks", [
+    (16, DitherType.TPDF, 96000, 9),      # 2 bytes; a ragged last run of 1
+    (20, DitherType.NONE, 192000, 6),     # 3 bytes, << 4; ragged run of 2
+    (24, DitherType.RECTANGULAR, 384000, 8),   # whole runs only
+    (32, DitherType.FPD, 96000, 3),       # 4 bytes; one run, shorter
+])
+def test_tail_kernel_block_route_equals_plain(bits, dither, out_hz, blocks,
+                                              big_endian):
+    """The emulated block route of the finish kernel's fused mode is
+    bit-equal to its plain version (rational_tail_reference, then
+    finish_reference) on two streamed tiles: the first takes its window
+    from a non-zero history, later runs from the samples before them; the
+    peak is masked inside a run."""
+    rp = trational.rational_plan(get_chain(E, DsdRate.DSD64, out_hz))
+    cfg = _cfg(bits, dither)
+    gain = tfused._gain32(cfg)
+    rng = np.random.default_rng(44)
+    hist = torch.from_numpy(rng.uniform(-1, 1, (2, 147)).astype(np.float32))
+    n_valid = 160 * blocks - 250
+    for t in range(2):
+        y = torch.from_numpy(rng.uniform(-1.1, 1.1, (2, 147 * blocks)
+                                         ).astype(np.float32))
+        y[:, -147:] *= 3.0  # the loudest frames lie past n_valid
+        key = philox.tile_key(45, t)
+        z, new_hist = trational.rational_tail_reference(y, hist, rp)
+        wr, pr = tfused.finish_reference(z, gain, key, cfg, big_endian,
+                                         n_valid)
+        we, pe = _emulate_tail_kernel(y, hist, rp, gain, key, cfg,
+                                      big_endian, n_valid)
+        assert torch.equal(we, wr)
+        assert float(pe) == float(pr)
+        if t == 0:
+            assert float(pr) < float((z * gain).abs().max())
+        hist = new_hist
 
 
 def test_tf32_is_refused(monkeypatch):
@@ -454,11 +646,12 @@ def test_step_covers_every_epilogue(bits, dither):
 
 def test_digest_covers_every_csrc_file(tmp_path):
     """An edit to a header alone (csrc/epilogue.cuh, which both kernels
-    include) changes the library's name, so no stale build is loaded."""
+    include, as they do csrc/tree_sum.cuh) changes the library's name, so
+    no stale build is loaded."""
     assert set(kernels.SOURCES) == {"fused_decim.cu", "finish.cu",
                                    "probes.cu"}
     assert sorted(f.name for f in kernels.CSRC.glob("*.cuh")) == [
-        "epilogue.cuh"]
+        "epilogue.cuh", "tree_sum.cuh"]
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
     before = kernels._digest(csrc)
