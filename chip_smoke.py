@@ -10,7 +10,8 @@ one line per chain); any failed check exits non-zero:
 2. build: compiles csrc/fused_decim.cu (K1a-K1e), csrc/finish.cu (K2, both
    modes) and csrc/probes.cu (P1, P2) with one nvcc each, started
    together, and links them; prints every kernel's registers, spills and
-   stack frame; K2's kernels must have no spill and no stack frame.
+   stack frame; K2's kernels must have no spill and no stack frame. Then
+   the host library of NJAD and FLAC (native/src, g++), timed.
    Then K1 at each mode's chain and block: shared memory per block,
    resident blocks and warps per SM (cudaOccupancyMaxActiveBlocksPer
    Multiprocessor), registers and local bytes per thread
@@ -75,7 +76,27 @@ one line per chain); any failed check exits non-zero:
    channels and one K1e and one K2t launch per tile. Then the same .dsf
    to a 24-bit 88.2 kHz TPDF WAV (÷128, K1c's deepest chain): the
    header, the frame count, the 1 kHz peak and one K1c launch per tile.
-10. probes: the floor probes of K1 (dsd2dxd_tpu_torch/tools). Every P1
+10. e2e, the level check: `dsd_levels` through its run() on phase 5's
+    .dsf at -r 352800 (one K1 launch at f32 NONE per tile) and -r 96000
+    (one K1e and one K2t per tile); the printed lines in the JAX format,
+    and the dBFS exactly 20 log10 of max |x| of the same file converted
+    with `-b 32 -d X -o w` (the same kernels at f32 NONE, level 0).
+11. e2e, BASELINE config 3: phase 8's .dsf with `-b 20 -d N -o F -r
+    88200`: STREAMINFO (88200 Hz, 2 ch, 20 bit, 180 x 88200 frames), the
+    MD5 that of the port's host NJAD run over the f32 output of `-b 32 -d
+    X -r 88200` (3-byte LE unshifted samples; each the floor or ceil of
+    x 2^19), the 1 kHz peak, one K1c launch (f32 NONE) per tile.
+12. e2e, BASELINE config 5: a folder of two subfolders with four tagged
+    stereo .dsf (TIT2, TPE1, TALB, an APIC JPEG): DSD64 60 s, DSD128,
+    DSD256 and DSD512 30 s each, through one CLI run `-R -o F -p OUT`
+    (24-bit TPDF at 352.8k) on the CLI's worker threads (at least 2):
+    the tree mirrored, STREAMINFO, TITLE/ARTIST/ALBUM in VORBIS_COMMENT,
+    the APIC bytes as PICTURE, the MD5 that of the same file's `-o w`
+    payload, the 1 kHz peak, and the ÷8/÷16/÷32/÷64 launches summed over
+    the files' tiles. Then a 5 s DSD128 .dsf to 20-bit 88.2k TPDF FLAC
+    (K1d), decoded in full by formats/flac_decode.py: MD5 good, sample for
+    sample the WAV payload >> 4.
+13. probes: the floor probes of K1 (dsd2dxd_tpu_torch/tools). Every P1
     mode (dmabench: noop, noflush, dma, halo0, contig, bspec) at each of
     K1's blocks against its plain version on 2 staged 16 MiB/ch stereo
     tiles, exact (noflush: each element of its shared output block is
@@ -91,7 +112,7 @@ one line per chain); any failed check exits non-zero:
     launch counts read around each run; and tools/finishsweep.py through
     its entry point at 512 and 2048 frames per run, which is what launches
     K2 "from z" (no conversion does, since the step takes K2t).
-11. timing: kernel and plain version per 16 MiB/ch stereo tile, CUDA
+14. timing: kernel and plain version per 16 MiB/ch stereo tile, CUDA
     events over 8 staged tiles, plain-kernel-kernel-plain, for K1a (÷8),
     ÷16, ÷64 and ÷128 at 24-bit TPDF and ÷64 at 20-bit TPDF (K1d); for
     the 48k family, one 16.08 MiB/ch tile (the engine's unit-aligned
@@ -122,8 +143,12 @@ the last line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import hashlib
 import io
 import json
+import math
 import shutil
 import struct
 import subprocess
@@ -201,13 +226,19 @@ def dsm_tone(freq: float, n: int, rate: int, amplitude: float = 0.5):
     return np.packbits(np.frombuffer(bytes(bits), dtype=np.uint8))
 
 
-def tone_planes(rate: int, seconds: int):
+@functools.lru_cache(maxsize=None)
+def tone_period(rate: int):
+    """0.1 s (100 periods) of the 1 kHz tone at `rate`, modulated once."""
+    return dsm_tone(1000.0, rate // 10, rate)
+
+
+def tone_planes(rate: int, seconds: float):
     """(2, seconds * rate / 8) stereo 1 kHz tone: 0.1 s (100 periods)
-    modulated once per channel and tiled seamlessly."""
+    modulated once (both channels alike) and tiled seamlessly."""
     import numpy as np
 
-    one = np.stack([dsm_tone(1000.0, rate // 10, rate) for _ in range(2)])
-    return np.tile(one, (1, seconds * 10))
+    one = np.stack([tone_period(rate)] * 2)
+    return np.tile(one, (1, round(seconds * 10)))
 
 
 def write_dsf(path: Path, planes, rate: int, block: int = 4096) -> None:
@@ -268,6 +299,57 @@ def s24(raw, shift: int = 0):
     b = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 3).astype(np.int64)
     v = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
     return np.where(v >= 1 << 23, v - (1 << 24), v) >> shift
+
+
+def wav_payload(path: Path) -> memoryview:
+    """The data chunk of a RIFF WAV, walking the chunks (an 'id3 ' chunk
+    may come before it)."""
+    data = path.read_bytes()
+    check(data[:4] == b"RIFF" and data[8:12] == b"WAVE",
+          f"{path.name}: not a WAV file")
+    i = 12
+    while i + 8 <= len(data):
+        cid, size = data[i:i + 4], struct.unpack("<I", data[i + 4:i + 8])[0]
+        if cid == b"data":
+            return memoryview(data)[i + 8:i + 8 + size]
+        i += 8 + size + (size & 1)
+    fail(f"{path.name}: no data chunk")
+
+
+def flac_meta(path: Path):
+    """((rate, channels, bits, frames, md5), VORBIS_COMMENT entries,
+    PICTURE data) from a FLAC file's metadata blocks."""
+    with open(path, "rb") as f:
+        data = f.read(1 << 20)
+    check(data[:4] == b"fLaC", f"{path.name}: not a FLAC stream")
+    info, comments, pictures, i = None, {}, [], 4
+    while True:
+        head, n = data[i], int.from_bytes(data[i + 1:i + 4], "big")
+        body = data[i + 4:i + 4 + n]
+        if head & 0x7F == 0:
+            rate = int.from_bytes(body[10:13], "big") >> 4
+            bits = (((body[12] & 1) << 4) | (body[13] >> 4)) + 1
+            frames = (((body[13] & 0x0F) << 32)
+                      | int.from_bytes(body[14:18], "big"))
+            info = (rate, ((body[12] >> 1) & 7) + 1, bits, frames,
+                    body[18:34])
+        elif head & 0x7F == 4:
+            j = 4 + struct.unpack("<I", body[:4])[0]
+            for _ in range(struct.unpack("<I", body[j:j + 4])[0]):
+                m = struct.unpack("<I", body[j + 4:j + 8])[0]
+                key, _, val = body[j + 8:j + 8 + m].decode().partition("=")
+                comments[key.upper()] = val
+                j += 4 + m
+        elif head & 0x7F == 6:
+            j = 4
+            for _ in range(2):  # MIME type, description
+                j += 4 + struct.unpack(">I", body[j:j + 4])[0]
+            j += 16  # width, height, depth, colours
+            m = struct.unpack(">I", body[j:j + 4])[0]
+            pictures.append(body[j + 4:j + 4 + m])
+        i += 4 + n
+        if head & 0x80:
+            return info, comments, pictures
 
 
 def bound(nbytes: float, flops: float, int_ops: float = 0.0):
@@ -354,6 +436,7 @@ def main() -> int:
 
     from dsd2dxd_tpu_torch import DitherType, DsdRate, FilterType, kernels
     from dsd2dxd_tpu_torch.cli.dsd2dxd import run as cli_run
+    from dsd2dxd_tpu_torch.native import loader as host_loader
     from dsd2dxd_tpu_torch.ops import fused, philox, rational
     from dsd2dxd_tpu_torch.ops.plan import get_chain
     from dsd2dxd_tpu_torch.ops.resample import StepConfig
@@ -378,6 +461,11 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.load()
     build_s = time.perf_counter() - t0
+    # the NJAD/FLAC host library (g++), built here so that no e2e phase's
+    # wall holds its build
+    t0 = time.perf_counter()
+    host_loader.load()
+    host_s = time.perf_counter() - t0
     entries = ptxas_entries(kernels.BUILD_LOG)
     k2_entries = [e for e in entries if e[0].startswith("finish")]
     check(len(k2_entries) == 14,
@@ -394,7 +482,8 @@ def main() -> int:
           f"19 taps per phase, its epilogue chosen per launch, probes: 6 P1 "
           f"modes + 7 P2 rungs); ptxas"
           f"{'' if kernels.BUILD_SECONDS else ' (of the earlier build)'}: "
-          f"{ptxas_text}")
+          f"{ptxas_text}; g++ of native/src/njad.cc and flac.cc (the host "
+          f"library of NJAD and FLAC) {host_s:.1f} s")
     occ_text = []
     for mode, key in (("K1a ÷8", (E, DsdRate.DSD64, 352800)),
                       ("K1b ÷16", (E, DsdRate.DSD64, 176400)),
@@ -827,7 +916,7 @@ def main() -> int:
               f"in {wall:.2f} s = {SECONDS / wall:.1f} audio-s/s; {n_tiles} "
               f"tiles of {tile_bytes} B/ch, {k1e} K1e + {k2} K2t launches; "
               f"FFT peak {peak_hz.tolist()} Hz; card [{label}]")
-        src.unlink()
+        src64 = src  # the level phase reads it again
         wav_path.unlink()
 
         # 7. e2e, config 2: raw interleaved DSD64 on stdin -> s24le on stdout
@@ -913,7 +1002,7 @@ def main() -> int:
               f"{wall:.2f} s = {SECONDS / wall:.1f} audio-s/s; {n_tiles} "
               f"tiles of {tile_bytes} B/ch, {launches['K1c']} K1c+K1d "
               f"launches; FFT peak {peak_hz.tolist()} Hz; card [{label}]")
-        src.unlink()
+        src128 = src  # config 3 reads it again
         wav_path.unlink()
 
         # 9. e2e, config 4: DSD256 .dsf -> 32-bit float AIFC at 192 kHz ----
@@ -988,10 +1077,262 @@ def main() -> int:
               f"{wall:.2f} s = {sec / wall:.1f} audio-s/s; {n_tiles} tiles "
               f"of {tile_bytes} B/ch, {launches['÷128']} K1c launches; FFT "
               f"peak {peak_hz.tolist()} Hz; card [{label}]")
+
+        # 10-12 read the Converter behind each CLI run: its stats (tiles,
+        # the drain thread's seconds in its sink) and its dBFS
+        from dsd2dxd_tpu_torch.cli import dsd_levels
+        from dsd2dxd_tpu_torch.cli.dsd2dxd import worker_count
+        from dsd2dxd_tpu_torch.formats.dsf import write_dsf as write_tagged
+        from dsd2dxd_tpu_torch.formats.flac_decode import decode_flac
+        from dsd2dxd_tpu_torch.formats.id3 import Id3Frame, Id3Tag
+
+        runs = []  # (file name, dBFS or None, stats) of each Converter run
+        check_level = engine.Converter.check_level
+        do_conversion = engine.Converter.do_conversion
+
+        def recorded_level(self, *a, **k):
+            db = check_level(self, *a, **k)
+            runs.append((self.file_name(), db, self.stats))
+            return db
+
+        def recorded_conversion(self, *a, **k):
+            do_conversion(self, *a, **k)
+            runs.append((self.file_name(), None, self.stats))
+
+        engine.Converter.check_level = recorded_level
+        engine.Converter.do_conversion = recorded_conversion
+
+        def launched():
+            return {m: n for m, n in fused.MODE_LAUNCHES.items() if n}
+
+        # 10. e2e, the level check: dsd_levels on phase 5's .dsf ---------
+        for rate in (352800, 96000):
+            chain = get_chain(E, DsdRate.DSD64, rate)
+            tile_bytes = engine_tile(chain, DsdRate.DSD64)
+            n_tiles = -(-n64 // tile_bytes)
+            runs.clear()
+            fused.reset_launch_counts()
+            err = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                rc = dsd_levels.run(["-q", "-r", str(rate), str(src64)])
+            wall = time.perf_counter() - t0
+            modes, k1 = launched(), fused.KERNEL_LAUNCHES
+            check(rc == 0, f"dsd_levels exited {rc}: {err.getvalue()}")
+            (_name, db, _stats), = runs
+            lines = [ln for ln in err.getvalue().splitlines()
+                     if "peak level" in ln]
+            want = [f"{src64.name}: peak level = {db:.1f} dBFS",
+                    f"Highest peak level: {db:.1f} dBFS"]
+            check(lines == want, f"dsd_levels printed {lines}, not {want}")
+            want_modes = ({"K1d": n_tiles} if rate == 352800
+                          else {"K1e": n_tiles, "K2t": n_tiles})
+            check(modes == want_modes and k1 == n_tiles,
+                  f"level at {rate}: launches {modes}, K1 {k1} for "
+                  f"{n_tiles} tiles")
+            rc = cli_run(["-b", "32", "-d", "X", "-o", "w", "-r", str(rate),
+                          "-q", "-p", str(out_dir), str(src64)])
+            check(rc == 0, f"CLI exited {rc}")
+            wav_path = out_dir / "tone_dsd64_180s.wav"
+            x = np.frombuffer(wav_payload(wav_path), dtype="<f4")
+            check(x.size == SECONDS * rate * 2, f"f32 WAV of {x.size} samples")
+            xmax = float(np.abs(x).max())
+            frame = int(np.abs(x).argmax()) // 2
+            check(db == 20.0 * math.log10(xmax),
+                  f"level at {rate}: {db!r} dBFS is not max |x| {xmax!r} of "
+                  f"the f32 output")
+            del x
+            wav_path.unlink()
+            phase("e2e", f"level: dsd_levels `-r {rate}` on the {SECONDS} s "
+                  f"DSD64 .dsf: {lines[0]!r} in {wall:.2f} s = "
+                  f"{SECONDS / wall:.1f} audio-s/s; {n_tiles} tiles of "
+                  f"{tile_bytes} B/ch, launches {modes}; the peak "
+                  f"{10 ** (db / 20):.9g} is max |x| {xmax!r} of `-b 32 -d X "
+                  f"-o w` (frame {frame}); card [{label}]")
+        src64.unlink()
+
+        # 11. e2e, BASELINE config 3: phase 8's .dsf -> 20-bit NJAD FLAC ---
+        chain = get_chain(E, DsdRate.DSD128, 88200)
+        tile_bytes = engine_tile(chain, DsdRate.DSD128)
+        n_tiles = -(-n128 // tile_bytes)
+        runs.clear()
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_run(["-b", "20", "-d", "N", "-o", "F", "-r", "88200", "-q",
+                      "-p", str(out_dir), str(src128)])
+        wall = time.perf_counter() - t0
+        modes, k1 = launched(), fused.KERNEL_LAUNCHES
+        check(rc == 0, f"CLI exited {rc}")
+        (_name, _db, stats), = runs
+        check(modes == {"K1c": n_tiles, "K1d": n_tiles} and k1 == n_tiles,
+              f"config 3: launches {modes}, K1 {k1} for {n_tiles} tiles")
+        flac_path = out_dir / "tone_dsd128_180s.flac"
+        info, _c, _p = flac_meta(flac_path)
+        check(info[:4] == (88200, 2, 20, SECONDS * 88200),
+              f"config 3: STREAMINFO {info[:4]}")
+        rc = cli_run(["-b", "32", "-d", "X", "-o", "w", "-r", "88200", "-q",
+                      "-p", str(out_dir), str(src128)])
+        check(rc == 0, f"CLI exited {rc}")
+        wav_path = out_dir / "tone_dsd128_180s.wav"
+        x = np.frombuffer(wav_payload(wav_path), dtype="<f4").reshape(-1, 2)
+        host = host_loader.load()
+        state = host.njad_new(2)
+        try:
+            t0 = time.perf_counter()
+            v = host.njad_quantize(state, x, 20)
+            njad_s = time.perf_counter() - t0
+        finally:
+            host.njad_free(state)
+        f = np.floor(x.astype(np.float64) * 2.0 ** 19)
+        check(bool(((v == f) | (v == f + 1)).all()),
+              "config 3: an NJAD sample is neither floor nor ceil of x 2^19")
+        del f, x
+        md5 = hashlib.md5(np.ascontiguousarray(
+            v.astype("<i4").view(np.uint8).reshape(-1, 4)[:, :3])).digest()
+        check(md5 == info[4], "config 3: the FLAC's MD5 is not that of the "
+              "host NJAD of the f32 output")
+        pcm = v[SECONDS // 2 * 88200:(SECONDS // 2 + 1) * 88200]
+        check(np.abs(pcm).max() > 1 << 16, "output is silent")
+        peak_hz = fft_peak_hz(pcm, 88200)
+        check(np.all(np.abs(peak_hz - 1000.0) < 2.0),
+              f"FFT peak at {peak_hz} Hz")
+        del v, pcm
+        phase("e2e", f"config 3: CLI `-b 20 -d N -o F -r 88200`, {SECONDS} s "
+              f"DSD128 stereo .dsf -> 20-bit NJAD FLAC "
+              f"({flac_path.stat().st_size / 1e6:.1f} MB; STREAMINFO "
+              f"{info[:4]}; its MD5 that of the host NJAD of `-b 32 -d X`'s "
+              f"f32 samples, each the floor or ceil of x 2^19) in "
+              f"{wall:.2f} s = {SECONDS / wall:.1f} audio-s/s; {n_tiles} "
+              f"tiles of {tile_bytes} B/ch, launches {modes}; drain thread "
+              f"in its sink (NJAD, FLAC encode, write) {stats['write_s']:.2f}"
+              f" s; host NJAD alone over the stream {njad_s:.2f} s = "
+              f"{SECONDS / njad_s:.0f}x real time; FFT peak "
+              f"{peak_hz.tolist()} Hz; card [{label}]")
+        for path in (wav_path, flac_path, src128):
+            path.unlink()
+
+        # 12. e2e, BASELINE config 5: a recursive batch -> 24-bit FLAC ----
+        album = tmp / "album"
+        jpeg = (b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(range(256)) * 8
+                + b"\xff\xd9")
+        batch = [("disc1/a_dsd64.dsf", DsdRate.DSD64, 60, "K1a"),
+                 ("disc1/b_dsd128.dsf", DsdRate.DSD128, 30, "K1b"),
+                 ("disc2/c_dsd256.dsf", DsdRate.DSD256, 30, "K1b"),
+                 ("disc2/d_dsd512.dsf", DsdRate.DSD512, 30, "K1c")]
+        want_modes, audio5 = {}, 0
+        for rel, rate, sec, mode in batch:
+            path = album / rel
+            path.parent.mkdir(parents=True, exist_ok=True)
+            tag = Id3Tag(frames=[
+                Id3Frame.text_frame("TIT2", path.stem),
+                Id3Frame.text_frame("TPE1", "Smoke Artist"),
+                Id3Frame.text_frame("TALB", "Smoke Album"),
+                Id3Frame("APIC", b"\x00image/jpeg\x00\x03cover\x00" + jpeg)])
+            planes = tone_planes(rate.hz, sec)
+            write_tagged(path, planes, rate.hz, id3=tag.to_bytes())
+            tile = engine_tile(get_chain(E, rate, 352800), rate)
+            want_modes[mode] = (want_modes.get(mode, 0)
+                                - (-planes.shape[1] // tile))
+            audio5 += sec
+            del planes
+        out5, wav5 = tmp / "out5", tmp / "wav5"
+        out5.mkdir()
+        wav5.mkdir()
+        workers = min(worker_count(), len(batch))
+        check(workers >= 2, f"config 5: the CLI runs {workers} worker")
+        runs.clear()
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_run(["-R", "-o", "F", "-q", "-p", str(out5), str(album)])
+        wall = time.perf_counter() - t0
+        modes = launched()
+        check(rc == 0, f"CLI exited {rc}")
+        check(modes == want_modes and len(runs) == len(batch),
+              f"config 5: launches {modes}, want {want_modes}; "
+              f"{len(runs)} conversions")
+        flac_runs = {name: st for name, _db, st in runs}
+        rc = cli_run(["-R", "-o", "w", "-q", "-p", str(wav5), str(album)])
+        check(rc == 0, f"CLI exited {rc}")
+        parts = []
+        for rel, rate, sec, mode in batch:
+            fpath = out5 / "album" / Path(rel).with_suffix(".flac")
+            check(fpath.is_file(), f"config 5: no {fpath.relative_to(out5)}"
+                  f" (tree: {sorted(str(q.relative_to(out5)) for q in out5.rglob('*'))})")
+            info, comments, pictures = flac_meta(fpath)
+            check(info[:4] == (352800, 2, 24, sec * 352800),
+                  f"config 5 {rel}: STREAMINFO {info[:4]}")
+            check((comments.get("TITLE"), comments.get("ARTIST"),
+                   comments.get("ALBUM")) == (Path(rel).stem, "Smoke Artist",
+                                             "Smoke Album"),
+                  f"config 5 {rel}: VORBIS_COMMENT {comments}")
+            check(pictures == [jpeg], f"config 5 {rel}: PICTURE blocks "
+                  f"{[len(q) for q in pictures]} bytes")
+            payload = wav_payload(wav5 / "album" / Path(rel).with_suffix(".wav"))
+            check(hashlib.md5(payload).digest() == info[4],
+                  f"config 5 {rel}: the FLAC's MD5 is not the WAV payload's")
+            mid = sec // 2 * 352800 * 6
+            pcm = s24(payload[mid:mid + 352800 * 6]).reshape(-1, 2)
+            peak_hz = fft_peak_hz(pcm, 352800)
+            check(np.abs(pcm).max() > 1 << 20
+                  and np.all(np.abs(peak_hz - 1000.0) < 2.0),
+                  f"config 5 {rel}: FFT peak at {peak_hz} Hz")
+            st = flac_runs[Path(rel).name]
+            parts.append(f"{rel} ({rate.name} ÷{rate.hz // 352800}, {sec} s, "
+                         f"{st['tiles']} tiles of {st['tile_bytes']} B/ch, "
+                         f"{fpath.stat().st_size / 1e6:.1f} MB, FLAC encode "
+                         f"and write on the drain thread {st['write_s']:.2f} "
+                         f"s = {sec / st['write_s']:.0f}x real time, the "
+                         f"stream's wall {st['elapsed_s']:.2f} s)")
+            del payload
+        phase("e2e", f"config 5: CLI `-R -o F -p OUT album/`, {len(batch)} "
+              f"tagged stereo .dsf in two folders -> 24-bit 352.8k TPDF FLAC "
+              f"on {workers} worker threads, {audio5} s of audio in "
+              f"{wall:.2f} s = {audio5 / wall:.1f} audio-s/s; launches "
+              f"{modes}; tree mirrored, STREAMINFO, TITLE/ARTIST/ALBUM and "
+              f"the APIC bytes as PICTURE, MD5 = md5 of the file's `-o w` "
+              f"payload, FFT peak at 1 kHz on each: " + "; ".join(parts)
+              + f"; card [{label}]")
+        shutil.rmtree(album)
+        shutil.rmtree(out5)
+        shutil.rmtree(wav5)
+
+        # the full decode of one short FLAC: 20-bit TPDF (K1d) -----------
+        src = tmp / "tone_dsd128_5s.dsf"
+        write_dsf(src, tone_planes(hz128, 5), hz128)
+        chain = get_chain(E, DsdRate.DSD128, 88200)
+        n_tiles = -(-5 * hz128 // 8 // engine_tile(chain, DsdRate.DSD128))
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_run(["-b", "20", "-o", "F", "-r", "88200", "-q", "-p",
+                      str(out_dir), str(src)])
+        wall = time.perf_counter() - t0
+        modes = launched()
+        check(rc == 0 and modes == {"K1c": n_tiles, "K1d": n_tiles},
+              f"CLI exited {rc}; launches {modes} for {n_tiles} tiles")
+        rc = cli_run(["-b", "20", "-o", "w", "-r", "88200", "-q", "-p",
+                      str(out_dir), str(src)])
+        check(rc == 0, f"CLI exited {rc}")
+        flac_path = out_dir / "tone_dsd128_5s.flac"
+        t0 = time.perf_counter()
+        st = decode_flac(flac_path.read_bytes())
+        dec_s = time.perf_counter() - t0
+        ref = s24(wav_payload(out_dir / "tone_dsd128_5s.wav"), 4).reshape(-1, 2)
+        check(st.md5_ok and (st.sample_rate, st.bits_per_sample) == (88200, 20)
+              and st.samples.shape == (5 * 88200, 2)
+              and np.array_equal(st.samples, ref),
+              f"5 s FLAC: md5_ok {st.md5_ok}, {st.samples.shape}, not the "
+              f"WAV's samples >> 4")
+        phase("e2e", f"FLAC decode: CLI `-b 20 -o F -r 88200` (TPDF), 5 s "
+              f"DSD128 .dsf in {wall:.2f} s = {5 / wall:.1f} audio-s/s, "
+              f"{n_tiles} tile(s), launches {modes}; decoded in "
+              f"full by formats/flac_decode.py in {dec_s:.1f} s: MD5 good, "
+              f"sample for sample the WAV payload >> 4; card [{label}]")
+        engine.Converter.check_level = check_level
+        engine.Converter.do_conversion = do_conversion
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 10. probes: P1 (dmabench) and P2 (floorstrip) ---------------------------
+    # 13. probes: P1 (dmabench) and P2 (floorstrip) ---------------------------
     from dsd2dxd_tpu_torch.tools import dmabench, floorstrip
 
     def ev_ms(fn, n) -> float:
@@ -1210,7 +1551,7 @@ def main() -> int:
             "ms": p2["med_ms"][r], "plain_ms": p2_plain[r],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
-    # 11. timing at bench.py's tile -------------------------------------------
+    # 14. timing at bench.py's tile -------------------------------------------
     tile = 16 * 1024 * 1024
     xs = [torch.from_numpy(rng.integers(0, 256, (2, tile), dtype=np.uint8)
                            ).to(dev) for _ in range(8)]

@@ -6,10 +6,12 @@ The JAX package ``dsd2dxd_tpu`` stays the reference. This package runs its
 256 -> 96/192/384 kHz), at 16/20/24 bit and 32-bit float, on an NVIDIA card:
 host code in PyTorch, the fused decimation kernel and the finish kernel
 written by hand in CUDA (``csrc/fused_decim.cu``, ``csrc/finish.cu``;
-the floor probes of ``tools/`` in ``csrc/probes.cu``). Its host layers
-(``formats/``, ``containers/``, ``filters/`` with the designed tables,
-``utils/``, the CLI parser and progress bars) are its own copies of the
-JAX package's: it imports nothing of ``dsd2dxd_tpu`` and never loads jax.
+the floor probes of ``tools/`` in ``csrc/probes.cu``), into WAV, AIFF,
+AIFC, FLAC or raw PCM, with NJAD dither and the level check (``dsd_levels``)
+besides. Its host layers (``formats/``, ``containers/``, ``filters/`` with
+the designed tables, ``utils/``, the CLI parser and progress bars, and the
+NJAD and FLAC C++ under ``native/``) are its own copies of the JAX
+package's: it imports nothing of ``dsd2dxd_tpu`` and never loads jax.
 """
 
 from dsd2dxd_tpu_torch.formats.dsd_types import (

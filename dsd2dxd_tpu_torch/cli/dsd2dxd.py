@@ -7,8 +7,8 @@ port's ``Converter``:
 
     python -m dsd2dxd_tpu_torch.cli.dsd2dxd -o w -p OUT track.dsf
 
-Configurations the port does not cover yet exit 1 with a ConfigError
-that names the ROADMAP item bringing them.
+A refused configuration (FLAC or NJAD at 32 bit, a rate the filter bank
+does not reach) exits 1 with a ConfigError, as in the JAX CLI.
 """
 
 from __future__ import annotations

@@ -1,0 +1,175 @@
+"""Build and bind the port's host C++ library: NJAD dither and the FLAC
+encoder (``native/src/njad.cc``, ``flac.cc``, byte copies of the JAX
+package's sources).
+
+A copy of ``dsd2dxd_tpu/native/loader.py`` cut to the NJAD and FLAC
+entry points. The library is built with g++ at first use -- never at
+import -- into ``dsd2dxd_tpu_torch/_build/`` (gitignored), named by a
+hash of the sources and the flags, compiled to a temporary file that is
+then renamed (a concurrent process never loads a half-written library).
+A failed build raises ConfigError with the compiler's output; nothing
+falls back to numpy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+from dsd2dxd_tpu_torch.utils.errors import ConfigError
+
+_PKG = Path(__file__).resolve().parent
+SRC = _PKG / "src"
+BUILD_DIR = _PKG.parent / "_build"
+SOURCES = ("njad.cc", "flac.cc")
+GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+             "-fvisibility=hidden")
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((SRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources (if this exact build is not there yet) and
+    return the library path."""
+    lib_path = BUILD_DIR / f"libdsd2dxd_torch_host_{_digest()}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".so.tmp{os.getpid()}")
+    cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), *(str(SRC / s) for s in SOURCES)]
+    try:
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise ConfigError(f"g++ could not run ({e}): NJAD dither and "
+                              f"FLAC output need the host library") from e
+        if res.returncode:
+            raise ConfigError(f"g++ failed ({res.returncode}) building the "
+                              f"NJAD/FLAC host library:\n{res.stderr}")
+        tmp.replace(lib_path)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return lib_path
+
+
+class NativeLib:
+    """Typed wrapper over the C ABI of njad.cc and flac.cc."""
+
+    def __init__(self, dll: ctypes.CDLL):
+        self._dll = dll
+        d = dll
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+
+        d.dsdkit_flac_new.argtypes = [ctypes.c_uint32] * 4
+        d.dsdkit_flac_new.restype = ctypes.c_void_p
+        d.dsdkit_flac_feed.argtypes = [ctypes.c_void_p, i32p, ctypes.c_size_t]
+        d.dsdkit_flac_feed.restype = None
+        d.dsdkit_flac_finish.argtypes = [ctypes.c_void_p]
+        d.dsdkit_flac_finish.restype = None
+        d.dsdkit_flac_pending.argtypes = [ctypes.c_void_p]
+        d.dsdkit_flac_pending.restype = ctypes.c_size_t
+        d.dsdkit_flac_drain.argtypes = [ctypes.c_void_p, u8p, ctypes.c_size_t]
+        d.dsdkit_flac_drain.restype = ctypes.c_size_t
+        d.dsdkit_flac_header.argtypes = [ctypes.c_void_p, u8p, ctypes.c_int]
+        d.dsdkit_flac_header.restype = None
+        d.dsdkit_flac_free.argtypes = [ctypes.c_void_p]
+        d.dsdkit_flac_free.restype = None
+
+        d.dsdkit_njad_new.argtypes = [ctypes.c_uint32]
+        d.dsdkit_njad_new.restype = ctypes.c_void_p
+        d.dsdkit_njad_quantize.argtypes = [
+            ctypes.c_void_p, f32p, i32p, ctypes.c_size_t,
+            ctypes.c_uint32, ctypes.c_int]
+        d.dsdkit_njad_quantize.restype = ctypes.c_int
+        d.dsdkit_njad_free.argtypes = [ctypes.c_void_p]
+        d.dsdkit_njad_free.restype = None
+
+    # -- FLAC encoder handle -------------------------------------------------
+
+    def flac_new(self, rate: int, channels: int, bps: int,
+                 block_size: int = 4096) -> int:
+        enc = self._dll.dsdkit_flac_new(rate, channels, bps, block_size)
+        if not enc:
+            raise ConfigError(
+                f"FLAC encoder rejects rate={rate} channels={channels} "
+                f"bps={bps} block_size={block_size} (bps 4-24, <=8 "
+                f"channels, block 16-32768)")
+        return enc
+
+    def flac_feed(self, enc: int, samples: np.ndarray) -> None:
+        """samples: (frames, channels) int32, interleaved in memory."""
+        samples = np.ascontiguousarray(samples, dtype=np.int32)
+        self._dll.dsdkit_flac_feed(enc, samples.reshape(-1),
+                                   samples.shape[0])
+
+    def flac_finish(self, enc: int) -> None:
+        self._dll.dsdkit_flac_finish(enc)
+
+    def flac_drain(self, enc: int) -> bytes:
+        n = self._dll.dsdkit_flac_pending(enc)
+        if n == 0:
+            return b""
+        out = np.empty(n, dtype=np.uint8)
+        got = self._dll.dsdkit_flac_drain(enc, out, n)
+        return out[:got].tobytes()
+
+    def flac_header(self, enc: int, is_last: bool) -> bytes:
+        out = np.empty(42, dtype=np.uint8)
+        self._dll.dsdkit_flac_header(enc, out, 1 if is_last else 0)
+        return out.tobytes()
+
+    def flac_free(self, enc: int) -> None:
+        self._dll.dsdkit_flac_free(enc)
+
+    # -- NJAD requantizer ----------------------------------------------------
+
+    def njad_new(self, channels: int) -> int:
+        state = self._dll.dsdkit_njad_new(channels)
+        if not state:
+            raise ConfigError(
+                f"NJAD dither supports 1-16 channels, got {channels}")
+        return state
+
+    def njad_quantize(self, state: int, samples: np.ndarray,
+                      bits: int) -> np.ndarray:
+        """samples: (frames, channels) float32 full-scale ±1 -> int32."""
+        samples = np.ascontiguousarray(samples, dtype=np.float32)
+        frames, channels = samples.shape
+        out = np.empty((frames, channels), dtype=np.int32)
+        rc = self._dll.dsdkit_njad_quantize(state, samples, out, frames,
+                                             channels, bits)
+        if rc != 0:
+            raise ConfigError(
+                f"NJAD quantize: {channels} channels / {bits} bits does "
+                "not match the handle (per-channel Benford state must "
+                "not alias)")
+        return out
+
+    def njad_free(self, state: int) -> None:
+        self._dll.dsdkit_njad_free(state)
+
+
+def load() -> NativeLib:
+    """The bound host library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = NativeLib(ctypes.CDLL(str(build())))
+        return _lib

@@ -502,6 +502,48 @@ def test_engine_48k_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch,
     assert a == b
 
 
+# -- the float-output consumers: NJAD, FLAC, the level check -----------------
+
+@pytest.mark.parametrize("rate,out,bits,dither,output", [
+    (DsdRate.DSD128, 88200, 20, DitherType.NJAD, OutputType.FLAC),
+    (DsdRate.DSD64, 352800, 16, DitherType.NJAD, OutputType.AIFF),
+    (DsdRate.DSD64, 96000, 24, DitherType.TPDF, OutputType.FLAC),
+], ids=["config3-njad-flac", "njad-aiff", "96k-flac"])
+def test_engine_njad_flac_on_card_equals_cpu(cuda_device, tmp_path,
+                                             monkeypatch, rate, out, bits,
+                                             dither, output):
+    """NJAD requantizes K1's f32 output, which the card computes bit-equal
+    to the CPU, and a 48k FLAC takes the card's and the CPU's equal wire
+    words: the files are equal byte for byte."""
+    a, b = _engine_equal(cuda_device, tmp_path, monkeypatch, rate, out,
+                         bits, dither, output)
+    assert a == b
+
+
+@pytest.mark.parametrize("out", [352800, 96000])
+def test_level_check_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch,
+                                        out):
+    """The level check on the card (only the peaks come back) gives the
+    CPU's dBFS exactly."""
+    import dsd2dxd_tpu_torch.pipeline.engine as engine
+    from dsd2dxd_tpu_torch.formats.dsd_types import Endianness, FmtType
+    from dsd2dxd_tpu_torch.formats.dsf import write_dsf
+
+    monkeypatch.setattr(engine, "_DEFAULT_TILE_TARGET", 32 * 1024)
+    src = tmp_path / "noise.dsf"
+    write_dsf(src, np.random.default_rng(35).integers(
+        0, 256, (2, 2_822_400 // 16), dtype=np.uint8), 2_822_400)
+    dbs = []
+    for dev in ("cpu", cuda_device):
+        conv = Converter.new_level_check(out, src, FmtType.PLANAR,
+                                         Endianness.MSB_FIRST, 2, 4096,
+                                         DsdRate.DSD64, device=dev)
+        dbs.append(conv.check_level())
+        # several tiles at 352.8k; the 48k tile is whole band blocks
+        assert conv.stats["tiles"] >= (2 if out == 352800 else 1)
+    assert dbs[0] == dbs[1] and np.isfinite(dbs[0])
+
+
 # -- the floor probes: P1 (dmabench) and P2 (floorstrip) ---------------------
 
 @pytest.mark.parametrize("block,halo", dmabench.k1_blocks())

@@ -1,6 +1,6 @@
 """The port's engine and CLI on the CPU (dsd2dxd_tpu_torch/pipeline,
 dsd2dxd_tpu_torch/cli) against the JAX engine, plus the configurations
-the port refuses."""
+both refuse."""
 
 import enum
 import io
@@ -15,6 +15,7 @@ import torch
 
 from dsd2dxd_tpu.formats import dsd_types as jtypes
 from dsd2dxd_tpu.pipeline import engine as jengine
+from dsd2dxd_tpu.utils.errors import ConfigError as JConfigError
 import dsd2dxd_tpu_torch.pipeline.engine as tengine
 from dsd2dxd_tpu_torch import Converter as TConverter
 from dsd2dxd_tpu_torch.cli.dsd2dxd import run as trun
@@ -165,53 +166,94 @@ def test_device_none_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    # what stays unported: FLAC and NJAD (item 7), at every depth, dither,
-    # word-lane chain and 48k-family rate
+    # FLAC and NJAD at every integer depth, dither, word-lane chain and
+    # 48k-family rate convert; at 32 bit both refuse, as in the JAX engine
     dict(bit_depth=16, output=OutputType.FLAC),
     dict(bit_depth=20, dither=DitherType.NJAD),
     dict(bit_depth=32, dither=DitherType.NJAD, output_rate=192000),
-    dict(bit_depth=16, output=OutputType.FLAC, output_rate=384000),
+    dict(bit_depth=32, output=OutputType.FLAC, dither=DitherType.FPD,
+         output_rate=384000),
     dict(dither=DitherType.NJAD),
     dict(output=OutputType.FLAC), dict(output_rate=176400,
                                       output=OutputType.FLAC),
     dict(output_rate=96000, output=OutputType.FLAC),
 ], ids=["16bit", "20bit", "32bit", "FPD", "NJAD", "FLAC", "G2", "48k"])
-def test_unported_configs_raise(tone_dsd64_stereo_dsf, tmp_path, kw):
+def test_flac_njad_configs_convert_or_refuse(tone_dsd64_stereo_dsf, tmp_path,
+                                             request, kw):
     args = dict(bit_depth=24, output=OutputType.WAV, level_db=0.0,
                 output_rate=352800, out_dir=tmp_path,
                 dither=DitherType.TPDF, filt=FilterType.EQUIRIPPLE,
                 append_rate=False, base_dir=tone_dsd64_stereo_dsf.parent,
                 input_path=tone_dsd64_stereo_dsf, device="cpu")
     args.update(kw)
-    with pytest.raises(ConfigError, match="ROADMAP"):
-        TConverter.from_container(**args)
+    if args["bit_depth"] == 32:
+        msg = ("FLAC output supports integer depths only"
+               if args["output"] is OutputType.FLAC
+               else "NJAD dither quantizes to integer depths")
+        with pytest.raises(ConfigError, match=msg):
+            TConverter.from_container(**args)
+        with pytest.raises(JConfigError, match=msg):
+            JConverter.from_container(**{k: v for k, v in args.items()
+                                         if k != "device"})
+        return
+    _small_tiles_for(request, args["output_rate"])
+    conv = TConverter.from_container(**args)
+    conv.do_conversion()
+    data = conv.output_path().read_bytes()
+    rate, bits = args["output_rate"], args["bit_depth"]
+    if args["output"] is OutputType.FLAC:
+        from dsd2dxd_tpu.formats.flac_decode import decode_flac
+
+        st = decode_flac(data)
+        assert st.md5_ok and (st.sample_rate, st.bits_per_sample) == (rate,
+                                                                      bits)
+        pcm = st.samples
+    else:
+        assert data[:4] == b"RIFF" and len(data) == 44 + rate // 2 * 2 * 3
+        pcm = _s24(data[44:]) >> (4 if bits == 20 else 0)
+    assert pcm.shape == (rate // 2, 2)
+    assert np.abs(pcm).max() > 1 << (bits - 3)
 
 
-def test_level_check_is_unported():
-    with pytest.raises(ConfigError, match="ROADMAP"):
-        TConverter.new_level_check(352800, None, FmtType.PLANAR,
-                                   Endianness.MSB_FIRST, 2, 4096,
-                                   DsdRate.DSD64)
+def test_level_check_on_stdin(tone_dsd64_stereo_dsf, small_tiles,
+                              monkeypatch):
+    """The level check of raw interleaved DSD on stdin (no input path)
+    gives the .dsf's peak."""
+    _stdin(monkeypatch, _raw_interleaved(tone_dsd64_stereo_dsf))
+    db = TConverter.new_level_check(352800, None, FmtType.INTERLEAVED,
+                                    Endianness.MSB_FIRST, 2, 4096,
+                                    DsdRate.DSD64, device="cpu").check_level()
+    ref = TConverter.new_level_check(352800, tone_dsd64_stereo_dsf,
+                                     FmtType.PLANAR, Endianness.MSB_FIRST, 2,
+                                     4096, DsdRate.DSD64,
+                                     device="cpu").check_level()
+    assert np.isfinite(db) and -12.0 < db < 0.0 and db == ref
 
 
 @pytest.mark.parametrize("rate", [96000, 192000])
-def test_48k_flac_njad_and_level_check_stay_unported(tone_dsd64_stereo_dsf,
-                                                     tmp_path, rate):
-    """At the 48k-family rates, which convert since the 48k family was
-    ported, FLAC, NJAD and the level check still raise, naming item 7."""
+def test_48k_flac_njad_and_level_check_convert(tone_dsd64_stereo_dsf,
+                                               tmp_path, request, rate):
+    """At the 48k-family rates FLAC and NJAD convert (the same frame count
+    as the WAV) and the level check gives a finite dBFS."""
+    _small_tiles_for(request, rate)
     args = dict(bit_depth=24, output=OutputType.WAV, level_db=0.0,
-                output_rate=rate, out_dir=tmp_path,
-                dither=DitherType.TPDF, filt=FilterType.EQUIRIPPLE,
-                append_rate=False, base_dir=tone_dsd64_stereo_dsf.parent,
+                output_rate=rate, dither=DitherType.TPDF,
+                filt=FilterType.EQUIRIPPLE, append_rate=False,
+                base_dir=tone_dsd64_stereo_dsf.parent,
                 input_path=tone_dsd64_stereo_dsf, device="cpu")
-    for kw in (dict(output=OutputType.FLAC), dict(dither=DitherType.NJAD)):
-        with pytest.raises(ConfigError, match="item 7"):
-            TConverter.from_container(**{**args, **kw})
-    with pytest.raises(ConfigError, match="item 7"):
-        TConverter.new_level_check(rate, None, FmtType.PLANAR,
-                                   Endianness.MSB_FIRST, 2, 4096,
-                                   DsdRate.DSD64)
-    TConverter.from_container(**args)  # the same job as a WAV is ported
+    for name, kw in (("flac", dict(output=OutputType.FLAC)),
+                     ("njad", dict(dither=DitherType.NJAD))):
+        (tmp_path / name).mkdir()
+        conv = TConverter.from_container(**{**args, **kw,
+                                            "out_dir": tmp_path / name})
+        conv.do_conversion()
+        assert conv.stats["audio_s"] == 0.5
+        assert conv.output_path().stat().st_size > rate // 2 * 2 * 3 // 4
+    db = TConverter.new_level_check(rate, tone_dsd64_stereo_dsf,
+                                    FmtType.PLANAR, Endianness.MSB_FIRST, 2,
+                                    4096, DsdRate.DSD64,
+                                    device="cpu").check_level()
+    assert np.isfinite(db) and -12.0 < db < 0.0
 
 
 def test_stdout_raw_equals_wav_payload(tone_dsd64_stereo_dsf, tmp_path,

@@ -1,8 +1,9 @@
 """The port's own host layers (dsd2dxd_tpu_torch/formats, containers,
-filters, cli) against the JAX package's modules they were copied from, on
-the CPU: the filter tables bit for bit for every cached chain, the readers
-on the same bytes, the writers byte for byte, the ID3 parser, the output
-paths and the CLI parser."""
+filters, native, cli) against the JAX package's modules they were copied
+from, on the CPU: the filter tables bit for bit for every cached chain, the
+readers on the same bytes, the writers byte for byte (FLAC too), the NJAD
+and FLAC C++ sources byte for byte, the FLAC decoder, the ID3 parser, the
+output paths and the CLI parser."""
 
 import dataclasses
 import enum
@@ -16,22 +17,26 @@ import pytest
 
 from dsd2dxd_tpu.cli import dsd2dxd as jcli
 from dsd2dxd_tpu.containers import aiff as jaiff
+from dsd2dxd_tpu.containers import flac as jflac
 from dsd2dxd_tpu.containers import wav as jwav
 from dsd2dxd_tpu.filters import design as jdesign
 from dsd2dxd_tpu.formats import dff as jdff
 from dsd2dxd_tpu.formats import discover as jdiscover
 from dsd2dxd_tpu.formats import dsd_types as jtypes
 from dsd2dxd_tpu.formats import dsf as jdsf
+from dsd2dxd_tpu.formats import flac_decode as jflac_decode
 from dsd2dxd_tpu.formats import id3 as jid3
 from dsd2dxd_tpu.formats import source as jsource
 from dsd2dxd_tpu_torch.cli import dsd2dxd as tcli
 from dsd2dxd_tpu_torch.containers import aiff as taiff
+from dsd2dxd_tpu_torch.containers import flac as tflac
 from dsd2dxd_tpu_torch.containers import wav as twav
 from dsd2dxd_tpu_torch.filters import design as tdesign
 from dsd2dxd_tpu_torch.formats import dff as tdff
 from dsd2dxd_tpu_torch.formats import discover as tdiscover
 from dsd2dxd_tpu_torch.formats import dsd_types as ttypes
 from dsd2dxd_tpu_torch.formats import dsf as tdsf
+from dsd2dxd_tpu_torch.formats import flac_decode as tflac_decode
 from dsd2dxd_tpu_torch.formats import id3 as tid3
 from dsd2dxd_tpu_torch.formats import source as tsource
 
@@ -179,6 +184,50 @@ def test_writers_byte_identical(kind, bits, with_id3):
         outs.append(f.getvalue())
     assert outs[0] == outs[1]
     assert len(outs[0]) > 500 * 2 * (bits // 8)
+
+
+@pytest.mark.parametrize("name", ["njad.cc", "flac.cc"])
+def test_native_sources_are_byte_copies(name):
+    """The port's NJAD and FLAC C++ are the JAX package's, byte for byte
+    (the port builds its own library from them)."""
+    from dsd2dxd_tpu_torch.native import loader
+
+    assert name in loader.SOURCES
+    jsrc = Path(jcli.__file__).parent.parent / "native" / "src" / name
+    assert filecmp.cmp(loader.SRC / name, jsrc, shallow=False)
+
+
+@pytest.mark.parametrize("bits", [16, 20, 24])
+def test_flac_writer_and_decoder_equal(bits):
+    """The port's FlacWriter (on its own library) writes the JAX writer's
+    bytes for the same int32 frames and ID3 tag (TIT2, TALB, an APIC), in
+    three writes; the port's decoder reads them as the JAX decoder does."""
+    rng = np.random.default_rng(bits)
+    lim = 1 << (bits - 1)
+    t = np.arange(20000)[:, None]
+    samples = (0.5 * lim * np.sin(t / (9.1 + np.arange(2)))
+               + rng.integers(-64, 64, (20000, 2))).astype(np.int32)
+    tag = jid3.Id3Tag(frames=[
+        jid3.Id3Frame.text_frame("TIT2", "Tone"),
+        jid3.Id3Frame.text_frame("TALB", "Album é"),
+        jid3.Id3Frame("APIC", b"\x00image/png\x00\x03\x00" + b"\x89PNG" * 9),
+    ]).to_bytes()
+    outs = []
+    for flac in (jflac, tflac):
+        f = io.BytesIO()
+        w = flac.FlacWriter(f, 2, 176400, bits, id3=tag)
+        for part in np.split(samples, [7000, 15000]):
+            w.write(part)
+        w.finalize()
+        outs.append(f.getvalue())
+    assert outs[0] == outs[1]
+    j = jflac_decode.decode_flac(outs[0])
+    t_ = tflac_decode.decode_flac(outs[0])
+    assert _plain({k: v for k, v in vars(t_).items() if k != "samples"}) \
+        == _plain({k: v for k, v in vars(j).items() if k != "samples"})
+    assert t_.md5_ok and t_.pictures and t_.comments
+    np.testing.assert_array_equal(t_.samples, j.samples)
+    np.testing.assert_array_equal(t_.samples, samples)
 
 
 # -- ID3, output paths, the CLI parser -------------------------------------------
