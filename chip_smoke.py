@@ -11,7 +11,9 @@ one line per chain); any failed check exits non-zero:
    modes) and csrc/probes.cu (P1, P2) with one nvcc each, started
    together, and links them; prints every kernel's registers, spills and
    stack frame; K2's kernels must have no spill and no stack frame. Then
-   the host library of NJAD and FLAC (native/src, g++), timed.
+   the host library of NJAD, FLAC and the modulator (native/src, g++),
+   timed; the tone files' modulator (ops/dsm.py, native) against the
+   loop written out here, on 0.1 s of the DSD64 tone: equal.
    Then K1 at each mode's chain and block: shared memory per block,
    resident blocks and warps per SM (cudaOccupancyMaxActiveBlocksPer
    Multiprocessor), registers and local bytes per thread
@@ -96,6 +98,22 @@ one line per chain); any failed check exits non-zero:
     the files' tiles. Then a 5 s DSD128 .dsf to 20-bit 88.2k TPDF FLAC
     (K1d), decoded in full by formats/flac_decode.py: MD5 good, sample for
     sample the WAV payload >> 4.
+12b. sharded: DSD2DXD_SHARD_STREAM=1 with the engine's stream_devices
+    patched to cuda:0 x 4 (and, with two or more cards, unpatched over
+    every card), through the CLI: phase 5's .dsf -> 24-bit 352.8k TPDF
+    WAV (K1a), the same .dsf -> 24-bit 96k (K1e + K2t, warm passes),
+    config 4's DSD256 .dsf -> f32 FPD AIFC, config 3's DSD128 .dsf ->
+    20-bit NJAD FLAC and `dsd_levels -r 96000`: each file's sha256 that of
+    the streaming phase's file, the dBFS phase 10's, one K1 (or K1e + K2t)
+    launch per tile and one K1e warm launch per 48k tile after the first;
+    audio-s/s of both routes. Then the CLI's round-robin: batch_devices();
+    with two or more cards config 5's batch over all of them (every MD5
+    phase 12's), with one card a line that says it needs a second. A K1
+    launch that expects device index device_count() must raise (CUDA
+    error 101). make_sharded_convert on random B=2 x T=2 tiles at 24-bit
+    TPDF over cuda:0 x 4 (÷8 and 96k) against the same function's plain
+    bodies on the CPU: within 1 LSB, >= 99.9 % identical, peak within
+    1e-4.
 13. probes: the floor probes of K1 (dsd2dxd_tpu_torch/tools). Every P1
     mode (dmabench: noop, noflush, dma, halo0, contig, bspec) at each of
     K1's blocks against its plain version on 2 staged 16 MiB/ch stereo
@@ -130,7 +148,7 @@ was loaded. Then the card's name and power limit, one JSON line on the
 kernels (K1's ÷128 chain a row of its own; launches from the e2e phase
 or tool run that drives each, named in the row's launches_from: K2 "from
 z", P1 and P2 are launched by their tools' timing loops and by no
-conversion;
+conversion; launches_sharded those of the sharded phase over cuda:0 x 4;
 max_abs_err in LSB of the output depth, absolute for f32; bound_ms the
 largest of the bytes over 3.35 TB/s, the f32 operations over 67 TFLOP/s
 and, for K2's dithered epilogues, the Philox calls' 18 multiplies (or
@@ -149,6 +167,7 @@ import hashlib
 import io
 import json
 import math
+import os
 import shutil
 import struct
 import subprocess
@@ -210,15 +229,30 @@ def phase(name: str, text: str) -> None:
 
 # -- test signal: DSD tone files, written without the JAX package ------------
 
-def dsm_tone(freq: float, n: int, rate: int, amplitude: float = 0.5):
-    """MSB-first DSD bytes of a sine through a 2nd-order delta-sigma
-    modulator (the same loop as the JAX package's ops/dsm.py)."""
+def sine(freq: float, n: int, rate: int, amplitude: float = 0.5):
     import numpy as np
 
-    x = (amplitude * np.sin(2 * np.pi * freq * np.arange(n) / rate)).tolist()
+    return amplitude * np.sin(2 * np.pi * freq * np.arange(n) / rate)
+
+
+def dsm_tone(freq: float, n: int, rate: int, amplitude: float = 0.5):
+    """MSB-first DSD bytes of a sine through the port's 2nd-order
+    delta-sigma modulator (ops/dsm.py, its native loop)."""
+    import numpy as np
+
+    from dsd2dxd_tpu_torch.ops.dsm import dsm2_bits
+
+    return np.packbits(dsm2_bits(sine(freq, n, rate, amplitude)))
+
+
+def dsm_tone_inline(freq: float, n: int, rate: int, amplitude: float = 0.5):
+    """The same bytes from the loop written out here, apart from the
+    port: the reference that the smoke holds ops/dsm.py's against."""
+    import numpy as np
+
     bits = bytearray(n)
     s1 = s2 = 0.0
-    for i, v in enumerate(x):
+    for i, v in enumerate(sine(freq, n, rate, amplitude).tolist()):
         y = 1.0 if s2 >= 0.0 else -1.0
         bits[i] = y > 0
         s1 += 0.5 * (v - y)
@@ -230,6 +264,14 @@ def dsm_tone(freq: float, n: int, rate: int, amplitude: float = 0.5):
 def tone_period(rate: int):
     """0.1 s (100 periods) of the 1 kHz tone at `rate`, modulated once."""
     return dsm_tone(1000.0, rate // 10, rate)
+
+
+def sha256(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
 
 
 def tone_planes(rate: int, seconds: float):
@@ -466,6 +508,10 @@ def main() -> int:
     t0 = time.perf_counter()
     host_loader.load()
     host_s = time.perf_counter() - t0
+    check(np.array_equal(tone_period(DSD64_HZ),
+                         dsm_tone_inline(1000.0, DSD64_HZ // 10, DSD64_HZ)),
+          "ops/dsm.py's modulator differs from the inline loop on 0.1 s of "
+          "the DSD64 tone")
     entries = ptxas_entries(kernels.BUILD_LOG)
     k2_entries = [e for e in entries if e[0].startswith("finish")]
     check(len(k2_entries) == 14,
@@ -482,8 +528,10 @@ def main() -> int:
           f"19 taps per phase, its epilogue chosen per launch, probes: 6 P1 "
           f"modes + 7 P2 rungs); ptxas"
           f"{'' if kernels.BUILD_SECONDS else ' (of the earlier build)'}: "
-          f"{ptxas_text}; g++ of native/src/njad.cc and flac.cc (the host "
-          f"library of NJAD and FLAC) {host_s:.1f} s")
+          f"{ptxas_text}; g++ of native/src/njad.cc, flac.cc and dsdkit.cc "
+          f"(the host library of NJAD, FLAC and the modulator) {host_s:.1f} "
+          f"s; the tones' modulator (ops/dsm.py, native) equal to the "
+          f"inline loop on 0.1 s of DSD64")
     occ_text = []
     for mode, key in (("K1a ÷8", (E, DsdRate.DSD64, 352800)),
                       ("K1b ÷16", (E, DsdRate.DSD64, 176400)),
@@ -846,6 +894,9 @@ def main() -> int:
 
     tmp = Path(tempfile.mkdtemp(prefix="dsd2dxd_smoke_"))
     launches = {}
+    # the streaming phases' files (sha256), walls and dBFS, for the
+    # sharded phase
+    stream_sha, stream_wall, stream_db = {}, {}, {}
     try:
         planes64 = tone_planes(DSD64_HZ, SECONDS)
         n64 = planes64.shape[1]
@@ -883,6 +934,8 @@ def main() -> int:
               f"{SECONDS / wall:.1f} audio-s/s; {n_tiles} tiles of "
               f"{tile_bytes} B/ch, {launches['K1a']} K1a launches; FFT peak "
               f"{peak_hz.tolist()} Hz; card [{label}]")
+        stream_sha["config 1"] = sha256(wav_path)
+        stream_wall["config 1"] = wall
         wav_path.unlink()
 
         # 6. e2e, integer 48k: the same .dsf -> 24-bit 96 kHz TPDF WAV -----
@@ -916,7 +969,9 @@ def main() -> int:
               f"in {wall:.2f} s = {SECONDS / wall:.1f} audio-s/s; {n_tiles} "
               f"tiles of {tile_bytes} B/ch, {k1e} K1e + {k2} K2t launches; "
               f"FFT peak {peak_hz.tolist()} Hz; card [{label}]")
-        src64 = src  # the level phase reads it again
+        src64 = src  # the level and sharded phases read it again
+        stream_sha["96k"] = sha256(wav_path)
+        stream_wall["96k"] = wall
         wav_path.unlink()
 
         # 7. e2e, config 2: raw interleaved DSD64 on stdin -> s24le on stdout
@@ -1002,7 +1057,7 @@ def main() -> int:
               f"{wall:.2f} s = {SECONDS / wall:.1f} audio-s/s; {n_tiles} "
               f"tiles of {tile_bytes} B/ch, {launches['K1c']} K1c+K1d "
               f"launches; FFT peak {peak_hz.tolist()} Hz; card [{label}]")
-        src128 = src  # config 3 reads it again
+        src128 = src  # config 3 and the sharded phase read it again
         wav_path.unlink()
 
         # 9. e2e, config 4: DSD256 .dsf -> 32-bit float AIFC at 192 kHz ----
@@ -1046,6 +1101,9 @@ def main() -> int:
               f"audio-s/s; {n_tiles} tiles of {tile_bytes} B/ch, "
               f"{launches['K1e']} K1e + {launches['K2t']} K2t launches; FFT "
               f"peak {peak_hz.tolist()} Hz; card [{label}]")
+        stream_sha["config 4"] = sha256(aifc_path)
+        stream_wall["config 4"] = wall
+        src256 = src  # the sharded phase reads it again
         aifc_path.unlink()
 
         # 9b. e2e, ÷128: the same DSD256 .dsf -> 24-bit 88.2 kHz TPDF WAV -
@@ -1149,7 +1207,7 @@ def main() -> int:
                   f"{tile_bytes} B/ch, launches {modes}; the peak "
                   f"{10 ** (db / 20):.9g} is max |x| {xmax!r} of `-b 32 -d X "
                   f"-o w` (frame {frame}); card [{label}]")
-        src64.unlink()
+            stream_db[rate], stream_wall[f"level {rate}"] = db, wall
 
         # 11. e2e, BASELINE config 3: phase 8's .dsf -> 20-bit NJAD FLAC ---
         chain = get_chain(E, DsdRate.DSD128, 88200)
@@ -1208,7 +1266,9 @@ def main() -> int:
               f" s; host NJAD alone over the stream {njad_s:.2f} s = "
               f"{SECONDS / njad_s:.0f}x real time; FFT peak "
               f"{peak_hz.tolist()} Hz; card [{label}]")
-        for path in (wav_path, flac_path, src128):
+        stream_sha["config 3"] = sha256(flac_path)
+        stream_wall["config 3"] = wall
+        for path in (wav_path, flac_path):
             path.unlink()
 
         # 12. e2e, BASELINE config 5: a recursive batch -> 24-bit FLAC ----
@@ -1253,7 +1313,7 @@ def main() -> int:
         flac_runs = {name: st for name, _db, st in runs}
         rc = cli_run(["-R", "-o", "w", "-q", "-p", str(wav5), str(album)])
         check(rc == 0, f"CLI exited {rc}")
-        parts = []
+        parts, md5_5 = [], {}
         for rel, rate, sec, mode in batch:
             fpath = out5 / "album" / Path(rel).with_suffix(".flac")
             check(fpath.is_file(), f"config 5: no {fpath.relative_to(out5)}"
@@ -1270,6 +1330,7 @@ def main() -> int:
             payload = wav_payload(wav5 / "album" / Path(rel).with_suffix(".wav"))
             check(hashlib.md5(payload).digest() == info[4],
                   f"config 5 {rel}: the FLAC's MD5 is not the WAV payload's")
+            md5_5[rel] = info[4]
             mid = sec // 2 * 352800 * 6
             pcm = s24(payload[mid:mid + 352800 * 6]).reshape(-1, 2)
             peak_hz = fft_peak_hz(pcm, 352800)
@@ -1292,7 +1353,6 @@ def main() -> int:
               f"the APIC bytes as PICTURE, MD5 = md5 of the file's `-o w` "
               f"payload, FFT peak at 1 kHz on each: " + "; ".join(parts)
               + f"; card [{label}]")
-        shutil.rmtree(album)
         shutil.rmtree(out5)
         shutil.rmtree(wav5)
 
@@ -1327,6 +1387,200 @@ def main() -> int:
               f"{n_tiles} tile(s), launches {modes}; decoded in "
               f"full by formats/flac_decode.py in {dec_s:.1f} s: MD5 good, "
               f"sample for sample the WAV payload >> 4; card [{label}]")
+
+        # 12b. sharded: one stream in overlap-save tiles over a device list,
+        # the CLI's round-robin over the cards, the C entries' device check
+        from dsd2dxd_tpu_torch.filters.design import chain_ratio
+        from dsd2dxd_tpu_torch.parallel import sharded
+        from dsd2dxd_tpu_torch.utils.device import batch_devices
+
+        n_cards = torch.cuda.device_count()
+        lists = [("cuda:0 x 4", [dev] * 4)]
+        if n_cards >= 2:
+            lists.append((f"every card ({n_cards}, unpatched)", None))
+        chain96 = get_chain(E, DsdRate.DSD64, 96000)
+        chain192 = get_chain(E, DsdRate.DSD256, 192000)
+        chain882 = get_chain(E, DsdRate.DSD128, 88200)
+        n1 = -(-n64 // engine_tile(get_chain(E, DsdRate.DSD64, 352800),
+                                  DsdRate.DSD64))
+        n96 = -(-n64 // engine_tile(chain96, DsdRate.DSD64))
+        n4 = -(-n256 // engine_tile(chain192, DsdRate.DSD256))
+        n3 = -(-n128 // engine_tile(chain882, DsdRate.DSD128))
+        # (name, CLI argv, output file, audio s, the launches it must make:
+        # one K1, or K1e + K2t, per tile, and one K1e warm pass per 48k
+        # tile after the first)
+        shard_runs = [
+            ("config 1", ["-o", "w", "-q", "-p", str(out_dir), str(src64)],
+             out_dir / "tone_dsd64_180s.wav", SECONDS, {"K1a": n1}),
+            ("96k", ["-o", "w", "-r", "96000", "-q", "-p", str(out_dir),
+                     str(src64)],
+             out_dir / "tone_dsd64_180s.wav", SECONDS,
+             {"K1e": 2 * n96 - 1, "K2t": n96}),
+            ("config 4", ["-b", "32", "-o", "C", "-r", "192000", "-q", "-p",
+                          str(out_dir), str(src256)],
+             out_dir / "tone_dsd256_60s.aifc", SECONDS_CONFIG4,
+             {"K1e": 2 * n4 - 1, "K2t": n4}),
+            ("config 3", ["-b", "20", "-d", "N", "-o", "F", "-r", "88200",
+                          "-q", "-p", str(out_dir), str(src128)],
+             out_dir / "tone_dsd128_180s.flac", SECONDS,
+             {"K1c": n3, "K1d": n3})]
+        real_stream_devices = engine.stream_devices
+        sharded_launches = {}
+        os.environ["DSD2DXD_SHARD_STREAM"] = "1"
+        t_phase = time.perf_counter()
+        try:
+            for list_name, devs in lists:
+                engine.stream_devices = (real_stream_devices if devs is None
+                                         else lambda d=devs: d)
+                want_devs = [str(d) for d in (devs or engine.stream_devices())]
+                parts = []
+                for name, argv, out_path, sec, want in shard_runs:
+                    runs.clear()
+                    fused.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    rc = cli_run(argv)
+                    wall = time.perf_counter() - t0
+                    modes = launched()
+                    check(rc == 0, f"sharded {name}: CLI exited {rc}")
+                    (_n, _db, st_run), = runs
+                    check(st_run["devices"] == want_devs,
+                          f"sharded {name}: ran on {st_run['devices']}, not "
+                          f"{want_devs}")
+                    check(modes == want, f"sharded {name} over {list_name}: "
+                          f"launches {modes}, want {want}")
+                    digest = sha256(out_path)
+                    check(digest == stream_sha[name],
+                          f"sharded {name} over {list_name}: sha256 "
+                          f"{digest} is not the streaming file's "
+                          f"{stream_sha[name]}")
+                    out_path.unlink()
+                    if devs is not None:
+                        for m, k in modes.items():
+                            sharded_launches[m] = (sharded_launches.get(m, 0)
+                                                   + k)
+                    parts.append(
+                        f"{name} {sec / wall:.1f} audio-s/s (streaming "
+                        f"{sec / stream_wall[name]:.1f}), {st_run['tiles']} "
+                        f"tiles, launches {modes}")
+                runs.clear()
+                fused.reset_launch_counts()
+                err = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stderr(err):
+                    rc = dsd_levels.run(["-q", "-r", "96000", str(src64)])
+                wall = time.perf_counter() - t0
+                modes = launched()
+                check(rc == 0, f"sharded dsd_levels exited {rc}: "
+                      f"{err.getvalue()}")
+                (_n, db, _st), = runs
+                check(db == stream_db[96000],
+                      f"sharded level at 96k: {db!r} dBFS, streaming "
+                      f"{stream_db[96000]!r}")
+                check(modes == {"K1e": 2 * n96 - 1, "K2t": n96},
+                      f"sharded level at 96k: launches {modes}")
+                if devs is not None:
+                    for m, k in modes.items():
+                        sharded_launches[m] = sharded_launches.get(m, 0) + k
+                parts.append(f"dsd_levels -r 96000 {db:.4f} dBFS = "
+                             f"streaming, {SECONDS / wall:.1f} audio-s/s "
+                             f"(streaming "
+                             f"{SECONDS / stream_wall['level 96000']:.1f}), "
+                             f"launches {modes}")
+                phase("sharded", f"DSD2DXD_SHARD_STREAM=1 over {list_name} "
+                      f"({', '.join(want_devs)}), through the CLI: each "
+                      f"file's sha256 that of the streaming phase's: "
+                      + "; ".join(parts) + f"; card [{label}]")
+        finally:
+            engine.stream_devices = real_stream_devices
+            del os.environ["DSD2DXD_SHARD_STREAM"]
+        for path in (src64, src128, src256):
+            path.unlink()
+
+        # round-robin: config 5's batch over every card
+        cards = batch_devices()
+        if n_cards >= 2:
+            out_rr = tmp / "out_rr"
+            out_rr.mkdir()
+            runs.clear()
+            t0 = time.perf_counter()
+            rc = cli_run(["-R", "-o", "F", "-q", "-p", str(out_rr),
+                          str(album)])
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"round-robin: CLI exited {rc}")
+            used = sorted({st_run["device"] for _n, _db, st_run in runs})
+            check(used == sorted(str(d) for d in cards[:len(batch)]),
+                  f"round-robin: files ran on {used}")
+            for rel, *_ in batch:
+                info, _c, _p = flac_meta(
+                    out_rr / "album" / Path(rel).with_suffix(".flac"))
+                check(info[4] == md5_5[rel], f"round-robin {rel}: MD5 "
+                      f"differs from phase 12's")
+            rr_text = (f"config 5's {len(batch)} files over {used} in "
+                       f"{wall:.2f} s = {audio5 / wall:.1f} audio-s/s, every "
+                       f"STREAMINFO MD5 phase 12's")
+        else:
+            rr_text = ("the cross-card run of config 5's batch needs a "
+                       "second card: not run on this machine")
+        shutil.rmtree(album)
+
+        # the C entries refuse a device index other than their tensors'
+        chain = get_chain(E, DsdRate.DSD64, 352800)
+        cfg = StepConfig(channels=2, tile_bytes=4096, bit_depth=24,
+                         dither=DitherType.NONE, level_db=0.0)
+        xq = torch.zeros((2, 4096), dtype=torch.uint8, device=dev)
+        hq = fused.init_fused_halo(chain, 2, dev)
+        oq = torch.empty(4096 * 2 * 3, dtype=torch.uint8, device=dev)
+        pq = fused._kernel_params(chain, cfg, hq.shape[1], 0, False, 4096)
+        before = fused.KERNEL_LAUNCHES
+        try:
+            fused._launch_decim(xq, hq, fused.kernel_coefs(chain, dev), oq,
+                                None, pq, ("K1a",), device_index=n_cards)
+            fail(f"a K1 launch expecting device {n_cards} ran on {dev}")
+        except RuntimeError as e:
+            refused = str(e)
+        check("CUDA error 101" in refused and fused.KERNEL_LAUNCHES == before,
+              f"device check: {refused}")
+
+        # make_sharded_convert on random B=2, T=2 tiles against the plain
+        # versions of the same tiles (the CPU's bodies)
+        msc, rng_s = [], np.random.default_rng(88)
+        for key in ((E, DsdRate.DSD64, 352800), (E, DsdRate.DSD64, 96000)):
+            chain = get_chain(*key)
+            tile = (8192 if rational.rational_head_len(chain) is None
+                    else 4 * rational.rational_plan(chain).unit_bits // 8)
+            cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=24,
+                             dither=DitherType.TPDF, level_db=-1.0)
+            fn, halo = sharded.make_sharded_convert(chain, cfg, [dev] * 4,
+                                                    2, 2)
+            fn_cpu, _ = sharded.make_sharded_convert(
+                chain, cfg, [torch.device("cpu")] * 4, 2, 2)
+            x = rng_s.integers(0, 256, (2, 2, 2, halo + tile),
+                               dtype=np.uint8)
+            keys = np.array([[philox.tile_key(7, 2 * b + t) for t in range(2)]
+                             for b in range(2)], dtype=np.uint64)
+            n_keep = int(tile * 8 * chain_ratio(chain))
+            valids = np.array([[n_keep, n_keep], [n_keep, n_keep // 3]])
+            fused.reset_launch_counts()
+            got, pk = fn(x, keys, valids)
+            k1 = fused.KERNEL_LAUNCHES
+            want, pk_cpu = fn_cpu(x, keys, valids)
+            d = (got.long() - want.long()).abs()
+            same = float((d == 0).double().mean())
+            check(tuple(got.shape) == (2, 2, n_keep, 2)
+                  and int(d.max()) <= TOL_DITHER_LSB and same >= 0.999
+                  and abs(pk - pk_cpu) < 1e-4 and k1 >= 4,
+                  f"make_sharded_convert {key}: max diff {int(d.max())} LSB, "
+                  f"{same:.5f} identical, peaks {pk} / {pk_cpu}, {k1} K1 "
+                  f"launches")
+            msc.append(f"{key[2] // 1000}k {int(d.max())} LSB max, "
+                       f"{100 * same:.3f} % identical, {k1} K1 launches")
+        phase("sharded", f"round-robin: batch_devices() = "
+              f"{[str(d) for d in cards]}; {rr_text}. Device check: a K1 "
+              f"launch expecting device {n_cards} raised ({refused}). "
+              f"make_sharded_convert, B=2 x T=2 random tiles at 24-bit TPDF "
+              f"over cuda:0 x 4 against the plain bodies: "
+              + "; ".join(msc) + f". Phase wall "
+              f"{time.perf_counter() - t_phase:.1f} s; card [{label}]")
         engine.Converter.check_level = check_level
         engine.Converter.do_conversion = do_conversion
     finally:
@@ -1803,7 +2057,11 @@ def main() -> int:
         "launches": launches[m],
         "launches_from": ("tools/finishsweep.py, a timing loop (0 launches "
                           "on the conversions)" if m == "K2"
-                          else "the e2e conversions through the CLI"),
+                          else "the e2e conversions through the CLI"
+                          + (f"; the sharded phase (DSD2DXD_SHARD_STREAM=1 "
+                             f"over cuda:0 x 4): {sharded_launches[m]}"
+                             if m in sharded_launches else "")),
+        "launches_sharded": sharded_launches.get(m, 0),
         "max_abs_err": max_err[m],
         "ms": timed[m][0], "plain_ms": timed[m][1],
         "bound_ms": bounds[m][0], "bound_by": bounds[m][1],

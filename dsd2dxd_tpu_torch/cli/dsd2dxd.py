@@ -1,11 +1,18 @@
-"""``dsd2dxd-torch``: the transcoder CLI on one CUDA device.
+"""``dsd2dxd-torch``: the transcoder CLI on the CUDA devices.
 
 Same flags as ``dsd2dxd_tpu/cli/dsd2dxd.py``, whose ``build_parser``,
-``expand_inputs``, ``parse_enums`` and ``worker_count`` are copied here
-(the JAX CLI's device and platform switches are not), driving the
-port's ``Converter``:
+``expand_inputs``, ``parse_enums``, ``worker_count`` and round-robin of a
+batch over the devices (``batch_devices``: file i on device i mod n, at
+least one worker per device) are copied here (its platform switch,
+``apply_platform_env``, is JAX's and is not), driving the port's
+``Converter``:
 
     python -m dsd2dxd_tpu_torch.cli.dsd2dxd -o w -p OUT track.dsf
+    python -m dsd2dxd_tpu_torch.cli.dsd2dxd -R -o F -p OUT album/
+
+With DSD2DXD_SHARD_STREAM=1 and two or more cards, each file's stream is
+instead cut into overlap-save tiles over every card
+(``parallel/sharded.py``).
 
 A refused configuration (FLAC or NJAD at 32 bit, a rate the filter bank
 does not reach) exits 1 with a ConfigError, as in the JAX CLI.
@@ -37,6 +44,7 @@ from dsd2dxd_tpu_torch.formats.dsd_types import (
     OutputType,
 )
 from dsd2dxd_tpu_torch.pipeline.engine import Converter
+from dsd2dxd_tpu_torch.utils.device import batch_devices
 from dsd2dxd_tpu_torch.utils.errors import Dsd2DxdError
 from dsd2dxd_tpu_torch.utils.logging import init_logging
 
@@ -190,7 +198,9 @@ def convert_file(path: Path, args, enums, base_dir: Path,
 
 
 def run(argv=None, device=None) -> int:
-    """CLI body; returns the exit code. `device` defaults to cuda:0."""
+    """CLI body; returns the exit code. A named `device` runs every input
+    there (the tests' "cpu"); None spreads a batch of files over
+    ``batch_devices()`` and runs stdin on cuda:0."""
     args = build_parser().parse_args(argv)
     log = init_logging(verbose=args.verbose, quiet=args.quiet)
     t_start = time.monotonic()
@@ -224,19 +234,28 @@ def run(argv=None, device=None) -> int:
             errors: list[BaseException] = []
             # raw PCM to stdout must not interleave across files
             workers = 1 if writes_stdout else min(worker_count(), len(files))
+            # file-level data parallelism: round-robin the batch over the
+            # devices, one pipeline per device, with enough workers to
+            # feed every device; with one device nothing changes
+            devices = [device] if device is not None else batch_devices()
+            if len(devices) > 1 and len(files) > 1 and not writes_stdout:
+                workers = min(max(workers, len(devices)), len(files))
+            else:
+                devices = [device]
 
-            def job(path) -> None:
+            def job(item) -> None:
+                idx, path = item
                 if cancel.is_set():
                     return
                 try:
                     convert_file(path, args, enums, base_dir, bars, cancel,
-                                 device=device)
+                                 device=devices[idx % len(devices)])
                 except BaseException as e:  # noqa: BLE001 - fail-fast batch
                     errors.append(e)
                     cancel.set()
 
             with ThreadPoolExecutor(max_workers=workers) as pool:
-                list(pool.map(job, files))
+                list(pool.map(job, enumerate(files)))
             if errors:
                 raise errors[0]
             n_inputs += len(files)

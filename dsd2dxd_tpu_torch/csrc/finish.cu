@@ -73,6 +73,7 @@
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
+#include "device_check.cuh"
 #include "epilogue.cuh"
 #include "tree_sum.cuh"
 
@@ -348,24 +349,24 @@ finish_tail_kernel(const float* __restrict__ y, const float* __restrict__ hist,
 // -- launches ---------------------------------------------------------------------
 
 // The blocks of `kernel` the card keeps resident at once (at least 1), or
-// a negative CUDA error. A launch asks the card only when the device, the
-// block or its shared memory differ from the launch before (`memo`, one
-// per kernel): a conversion repeats one shape tile after tile.
+// a negative CUDA error. A launch asks the card only when the block or its
+// shared memory differ from the launch before on the same device (`memo`,
+// one slot per device ordinal for each kernel, so cards launching in turn
+// keep their own): a conversion repeats one shape tile after tile.
+// `dev` is the current device, checked by the entry (check_device).
 struct Resident {
-  int dev = -1, threads = 0, smem_bytes = 0, blocks = 0;
+  int threads = 0, smem_bytes = 0, blocks = 0;
 };
 
 template <typename Kernel>
-static int resident_blocks(Kernel kernel, int threads, int smem_bytes,
-                           int max_smem_bytes, Resident& memo) {
+static int resident_blocks(Kernel kernel, int dev, int threads, int smem_bytes,
+                           int max_smem_bytes, Resident* memo) {
   static std::mutex lock;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return -(int)e;
+  int sms = 0, per_sm = 0;
+  cudaError_t e = cudaSuccess;
   std::lock_guard<std::mutex> guard(lock);
-  if (memo.dev == dev && memo.threads == threads &&
-      memo.smem_bytes == smem_bytes)
-    return memo.blocks;
+  Resident& m = memo[dev];
+  if (m.threads == threads && m.smem_bytes == smem_bytes) return m.blocks;
   if (max_smem_bytes > 0)
     e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem_bytes);
@@ -375,8 +376,8 @@ static int resident_blocks(Kernel kernel, int threads, int smem_bytes,
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
                                                       smem_bytes);
   if (e != cudaSuccess) return -(int)e;
-  memo = {dev, threads, smem_bytes, sms * (per_sm > 0 ? per_sm : 1)};
-  return memo.blocks;
+  m = {threads, smem_bytes, sms * (per_sm > 0 ? per_sm : 1)};
+  return m.blocks;
 }
 
 static bool valid_params(const FinishParams* p) {
@@ -392,12 +393,12 @@ static bool valid_params(const FinishParams* p) {
 
 template <int BITS, int DITHER>
 static int launch(const void* z, void* out, void* peak, const FinishParams* p,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, int dev) {
   const int smem = 2 * p->run_frames * p->channels * bytes_per_sample(BITS);
   if (smem > MAX_Z_SMEM) return (int)cudaErrorInvalidValue;
-  static Resident memo;
+  static Resident memo[MAX_DEVICES];
   const int resident =
-      resident_blocks(finish_kernel<BITS, DITHER>, THREADS, smem, 0, memo);
+      resident_blocks(finish_kernel<BITS, DITHER>, dev, THREADS, smem, 0, memo);
   if (resident < 0) return -resident;
   const long long n_runs = (p->n_frames + p->run_frames - 1) / p->run_frames;
   const unsigned grid = (unsigned)(n_runs < resident ? n_runs : resident);
@@ -409,10 +410,10 @@ static int launch(const void* z, void* out, void* peak, const FinishParams* p,
 template <int T>
 static int launch_tail(const void* y, const void* hist, const void* coefs,
                        const void* offs, void* out, void* peak,
-                       const FinishParams* p, cudaStream_t stream) {
+                       const FinishParams* p, cudaStream_t stream, int dev) {
   const int threads = p->channels == 1 ? TAIL_THREADS / 2 : TAIL_THREADS;
-  static Resident memo;
-  const int resident = resident_blocks(finish_tail_kernel<T>, threads,
+  static Resident memo[MAX_DEVICES];
+  const int resident = resident_blocks(finish_tail_kernel<T>, dev, threads,
                                        p->smem_bytes, MAX_SMEM - 256, memo);
   if (resident < 0) return -resident;
   const int n_runs = (p->n_blocks + TAIL_B - 1) / TAIL_B;
@@ -427,23 +428,25 @@ extern "C" int dsd2dxd_finish_params_size() { return (int)sizeof(FinishParams); 
 
 // Mode "from z": z (C, n_frames) f32 -> out (n_frames * C * bps) wire bytes.
 extern "C" int dsd2dxd_finish(const void* z, void* out, void* peak,
-                              const FinishParams* p, void* stream) {
+                              const FinishParams* p, void* stream, int dev) {
   if (!valid_params(p) || p->run_frames < 16 ||
       (p->run_frames & (p->run_frames - 1)))
     return (int)cudaErrorInvalidValue;
+  const cudaError_t e = check_device(dev);
+  if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (p->bit_depth * 4 + p->dither) {
-    case 16 * 4 + DITHER_NONE: return launch<16, DITHER_NONE>(z, out, peak, p, s);
-    case 16 * 4 + DITHER_TPDF: return launch<16, DITHER_TPDF>(z, out, peak, p, s);
-    case 16 * 4 + DITHER_RECT: return launch<16, DITHER_RECT>(z, out, peak, p, s);
-    case 20 * 4 + DITHER_NONE: return launch<20, DITHER_NONE>(z, out, peak, p, s);
-    case 20 * 4 + DITHER_TPDF: return launch<20, DITHER_TPDF>(z, out, peak, p, s);
-    case 20 * 4 + DITHER_RECT: return launch<20, DITHER_RECT>(z, out, peak, p, s);
-    case 24 * 4 + DITHER_NONE: return launch<24, DITHER_NONE>(z, out, peak, p, s);
-    case 24 * 4 + DITHER_TPDF: return launch<24, DITHER_TPDF>(z, out, peak, p, s);
-    case 24 * 4 + DITHER_RECT: return launch<24, DITHER_RECT>(z, out, peak, p, s);
-    case 32 * 4 + DITHER_NONE: return launch<32, DITHER_NONE>(z, out, peak, p, s);
-    case 32 * 4 + DITHER_FPD: return launch<32, DITHER_FPD>(z, out, peak, p, s);
+    case 16 * 4 + DITHER_NONE: return launch<16, DITHER_NONE>(z, out, peak, p, s, dev);
+    case 16 * 4 + DITHER_TPDF: return launch<16, DITHER_TPDF>(z, out, peak, p, s, dev);
+    case 16 * 4 + DITHER_RECT: return launch<16, DITHER_RECT>(z, out, peak, p, s, dev);
+    case 20 * 4 + DITHER_NONE: return launch<20, DITHER_NONE>(z, out, peak, p, s, dev);
+    case 20 * 4 + DITHER_TPDF: return launch<20, DITHER_TPDF>(z, out, peak, p, s, dev);
+    case 20 * 4 + DITHER_RECT: return launch<20, DITHER_RECT>(z, out, peak, p, s, dev);
+    case 24 * 4 + DITHER_NONE: return launch<24, DITHER_NONE>(z, out, peak, p, s, dev);
+    case 24 * 4 + DITHER_TPDF: return launch<24, DITHER_TPDF>(z, out, peak, p, s, dev);
+    case 24 * 4 + DITHER_RECT: return launch<24, DITHER_RECT>(z, out, peak, p, s, dev);
+    case 32 * 4 + DITHER_NONE: return launch<32, DITHER_NONE>(z, out, peak, p, s, dev);
+    case 32 * 4 + DITHER_FPD: return launch<32, DITHER_FPD>(z, out, peak, p, s, dev);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -454,7 +457,8 @@ extern "C" int dsd2dxd_finish(const void* z, void* out, void* peak,
 extern "C" int dsd2dxd_finish_tail(const void* y, const void* hist,
                                    const void* coefs, const void* offs,
                                    void* out, void* peak,
-                                   const FinishParams* p, void* stream) {
+                                   const FinishParams* p, void* stream,
+                                   int dev) {
   const int pad = (p->nhist + 3) & ~3;
   if (!valid_params(p) || p->n_blocks < 1 ||
       p->n_frames != (long long)P_OUT * p->n_blocks || p->nhist < 1 ||
@@ -465,11 +469,13 @@ extern "C" int dsd2dxd_finish_tail(const void* y, const void* hist,
                2 * p->channels * p->win_stride) +
               P_OUT * TAIL_B * p->channels * bytes_per_sample(p->bit_depth))
     return (int)cudaErrorInvalidValue;
+  const cudaError_t e = check_device(dev);
+  if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (p->n_taps) {  // the entries per phase of the cached 48k chains
-    case 16: return launch_tail<16>(y, hist, coefs, offs, out, peak, p, s);
-    case 18: return launch_tail<18>(y, hist, coefs, offs, out, peak, p, s);
-    case 19: return launch_tail<19>(y, hist, coefs, offs, out, peak, p, s);
+    case 16: return launch_tail<16>(y, hist, coefs, offs, out, peak, p, s, dev);
+    case 18: return launch_tail<18>(y, hist, coefs, offs, out, peak, p, s, dev);
+    case 19: return launch_tail<19>(y, hist, coefs, offs, out, peak, p, s, dev);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -82,6 +82,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_check.cuh"
 #include "epilogue.cuh"
 #include "tree_sum.cuh"
 
@@ -496,11 +497,14 @@ extern "C" int dsd2dxd_decim_params_size() { return (int)sizeof(DecimParams); }
 
 extern "C" int dsd2dxd_fused_decim(const void* halo, const void* x,
                                    const void* coefs, void* out, void* peak,
-                                   const DecimParams* p, void* stream) {
+                                   const DecimParams* p, void* stream,
+                                   int device) {
   if (p->n_stages < 1 || p->n_stages > MAX_STAGES || p->tile_frames < 1 ||
       p->smem_bytes > MAX_SMEM || p->n_coefs % 4 || !valid_epilogue(p))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = set_attributes();
+  cudaError_t e = check_device(device);
+  if (e != cudaSuccess) return (int)e;
+  e = set_attributes();
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((p->tile_frames + p->block_out - 1) / p->block_out,
                   p->channels);
@@ -512,8 +516,11 @@ extern "C" int dsd2dxd_fused_decim(const void* halo, const void* x,
 
 // res: resident blocks per SM at smem_bytes of dynamic shared memory,
 // threads per block, registers per thread, local (stack) bytes per thread.
-extern "C" int dsd2dxd_fused_decim_attrs(int smem_bytes, int* res) {
-  cudaError_t e = set_attributes();
+extern "C" int dsd2dxd_fused_decim_attrs(int smem_bytes, int* res,
+                                         int device) {
+  cudaError_t e = check_device(device);
+  if (e != cudaSuccess) return (int)e;
+  e = set_attributes();
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&res[0], fused_decim_kernel,
                                                     THREADS, smem_bytes);

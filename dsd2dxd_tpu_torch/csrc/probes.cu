@@ -64,6 +64,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_check.cuh"
 #include "epilogue.cuh"
 
 #define MAX_STAGES 8
@@ -318,9 +319,12 @@ extern "C" int dsd2dxd_dma_params_size() { return (int)sizeof(DmaParams); }
 extern "C" int dsd2dxd_probe_params_size() { return (int)sizeof(ProbeParams); }
 
 extern "C" int dsd2dxd_dma_probe(const void* x, void* out, int mode,
-                                 const DmaParams* p, void* stream) {
+                                 const DmaParams* p, void* stream,
+                                 int device) {
   if (p->n_blocks < 1 || p->rows < 1 || p->k_sub < 1)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t e = check_device(device);
+  if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case P1_NOOP: return launch_dma<P1_NOOP>(x, out, p, s);
@@ -408,9 +412,11 @@ static int launch_step(const void* halo, const void* x, const void* taps,
 extern "C" int dsd2dxd_probe_step(const void* halo, const void* x,
                                   const void* taps, void* out, void* peak,
                                   int rung, const ProbeParams* p,
-                                  void* stream) {
+                                  void* stream, int device) {
   if (p->n_stages < 1 || p->n_stages > MAX_STAGES || p->tile_frames < 1)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t e = check_device(device);
+  if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (rung) {
     case RUNG_DMA: return launch_step<RUNG_DMA>(halo, x, taps, out, peak, p, s);

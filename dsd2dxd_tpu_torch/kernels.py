@@ -11,11 +11,16 @@ versions.
 
 Each C entry returns ``cudaGetLastError()`` after its launch, and the
 Python wrapper raises when that is not 0: a refused launch never runs,
-and a later ``synchronize`` would not report it.
+and a later ``synchronize`` would not report it. Each entry also takes
+the index of its tensors' device and returns ``cudaErrorInvalidDevice``
+(101) when the calling thread's current device is another
+(``csrc/device_check.cuh``); the wrappers make that device current
+(``launch_device``) before they call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,6 +29,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -163,6 +170,15 @@ BUILD_LOG = ""         # nvcc's output (ptxas register/smem report), kept
 BUILD_SECONDS = None   # wall time of the last build, None if cached
 
 
+@contextlib.contextmanager
+def launch_device(device: torch.device):
+    """Make the CUDA `device` (a tensor's) current for a launch; yields
+    (the handle of its current stream, its index) for the C entry, which
+    refuses any other current device."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream, device.index
+
+
 def find_nvcc() -> str:
     for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
                  shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
@@ -244,11 +260,13 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,  # peak f32[1], zeroed
             ctypes.POINTER(DecimParams),
             ctypes.c_void_p,  # cudaStream_t
+            ctypes.c_int,     # device index of the tensors (check_device)
         ]
         lib.dsd2dxd_fused_decim.restype = ctypes.c_int
         lib.dsd2dxd_fused_decim_attrs.argtypes = [
             ctypes.c_int,                     # dynamic shared memory bytes
             ctypes.POINTER(ctypes.c_int),     # out: blocks/SM, threads, regs, local
+            ctypes.c_int,                     # device index
         ]
         lib.dsd2dxd_fused_decim_attrs.restype = ctypes.c_int
         lib.dsd2dxd_finish_params_size.argtypes = []
@@ -262,6 +280,7 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,  # peak f32[1], zeroed
             ctypes.POINTER(FinishParams),
             ctypes.c_void_p,  # cudaStream_t
+            ctypes.c_int,     # device index
         ]
         lib.dsd2dxd_finish.restype = ctypes.c_int
         lib.dsd2dxd_finish_tail.argtypes = [
@@ -273,6 +292,7 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,  # peak f32[1], zeroed
             ctypes.POINTER(FinishParams),
             ctypes.c_void_p,  # cudaStream_t
+            ctypes.c_int,     # device index
         ]
         lib.dsd2dxd_finish_tail.restype = ctypes.c_int
         lib.dsd2dxd_dma_params_size.argtypes = []
@@ -286,6 +306,7 @@ def load() -> ctypes.CDLL:
             ctypes.c_int,     # mode
             ctypes.POINTER(DmaParams),
             ctypes.c_void_p,  # cudaStream_t
+            ctypes.c_int,     # device index
         ]
         lib.dsd2dxd_dma_probe.restype = ctypes.c_int
         lib.dsd2dxd_probe_params_size.argtypes = []
@@ -302,6 +323,7 @@ def load() -> ctypes.CDLL:
             ctypes.c_int,     # rung
             ctypes.POINTER(ProbeParams),
             ctypes.c_void_p,  # cudaStream_t
+            ctypes.c_int,     # device index
         ]
         lib.dsd2dxd_probe_step.restype = ctypes.c_int
         _lib = lib

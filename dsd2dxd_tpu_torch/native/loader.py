@@ -1,9 +1,10 @@
-"""Build and bind the port's host C++ library: NJAD dither and the FLAC
-encoder (``native/src/njad.cc``, ``flac.cc``, byte copies of the JAX
-package's sources).
+"""Build and bind the port's host C++ library: NJAD dither, the FLAC
+encoder and the delta-sigma modulator of the test signals
+(``native/src/njad.cc``, ``flac.cc``, ``dsdkit.cc``, byte copies of the
+JAX package's sources).
 
-A copy of ``dsd2dxd_tpu/native/loader.py`` cut to the NJAD and FLAC
-entry points. The library is built with g++ at first use -- never at
+A copy of ``dsd2dxd_tpu/native/loader.py`` cut to the NJAD, FLAC and
+``dsdkit_dsm2_bits`` entry points. The library is built with g++ at first use -- never at
 import -- into ``dsd2dxd_tpu_torch/_build/`` (gitignored), named by a
 hash of the sources and the flags, compiled to a temporary file that is
 then renamed (a concurrent process never loads a half-written library).
@@ -27,7 +28,7 @@ from dsd2dxd_tpu_torch.utils.errors import ConfigError
 _PKG = Path(__file__).resolve().parent
 SRC = _PKG / "src"
 BUILD_DIR = _PKG.parent / "_build"
-SOURCES = ("njad.cc", "flac.cc")
+SOURCES = ("njad.cc", "flac.cc", "dsdkit.cc")
 GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
              "-fvisibility=hidden")
 
@@ -56,11 +57,12 @@ def build() -> Path:
         try:
             res = subprocess.run(cmd, capture_output=True, text=True)
         except OSError as e:
-            raise ConfigError(f"g++ could not run ({e}): NJAD dither and "
-                              f"FLAC output need the host library") from e
+            raise ConfigError(f"g++ could not run ({e}): NJAD dither, FLAC "
+                              f"output and the modulator need the host "
+                              f"library") from e
         if res.returncode:
             raise ConfigError(f"g++ failed ({res.returncode}) building the "
-                              f"NJAD/FLAC host library:\n{res.stderr}")
+                              f"NJAD/FLAC/modulator host library:\n{res.stderr}")
         tmp.replace(lib_path)
     finally:
         tmp.unlink(missing_ok=True)
@@ -68,7 +70,7 @@ def build() -> Path:
 
 
 class NativeLib:
-    """Typed wrapper over the C ABI of njad.cc and flac.cc."""
+    """Typed wrapper over the C ABI of njad.cc, flac.cc and dsdkit.cc."""
 
     def __init__(self, dll: ctypes.CDLL):
         self._dll = dll
@@ -76,6 +78,10 @@ class NativeLib:
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+
+        d.dsdkit_dsm2_bits.argtypes = [f64p, u8p, ctypes.c_size_t]
+        d.dsdkit_dsm2_bits.restype = None
 
         d.dsdkit_flac_new.argtypes = [ctypes.c_uint32] * 4
         d.dsdkit_flac_new.restype = ctypes.c_void_p
@@ -100,6 +106,14 @@ class NativeLib:
         d.dsdkit_njad_quantize.restype = ctypes.c_int
         d.dsdkit_njad_free.argtypes = [ctypes.c_void_p]
         d.dsdkit_njad_free.restype = None
+
+    def dsm2_bits(self, x: np.ndarray) -> np.ndarray:
+        """The 2nd-order delta-sigma modulator (``ops/dsm.py``) over
+        float64 samples: DSD bits {0, 1}."""
+        x = np.ascontiguousarray(x, dtype=np.float64)
+        out = np.empty(x.shape[0], dtype=np.uint8)
+        self._dll.dsdkit_dsm2_bits(x, out, x.shape[0])
+        return out
 
     # -- FLAC encoder handle -------------------------------------------------
 

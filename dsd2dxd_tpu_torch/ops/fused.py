@@ -542,9 +542,12 @@ def _kernel_params(chain, cfg: StepConfig, halo_bytes: int, tile_key: int,
 def _launch_decim(x_u8: torch.Tensor, halo: torch.Tensor,
                   coefs: torch.Tensor, out: torch.Tensor,
                   peak: Optional[torch.Tensor], params: kernels.DecimParams,
-                  modes: Sequence[str]) -> None:
-    """Launch fused_decim on the current stream, raise if the launch
-    fails, else count it under `modes`."""
+                  modes: Sequence[str],
+                  device_index: Optional[int] = None) -> None:
+    """Launch fused_decim on the current stream of x's device, made the
+    current device; raise if the launch fails, else count it under
+    `modes`. `device_index` overrides the index the C entry expects (a
+    check of its refusal: any other index than x's raises)."""
     global KERNEL_LAUNCHES
     if (coefs.dtype != torch.float32 or coefs.numel() != params.n_coefs
             or not coefs.is_contiguous() or coefs.data_ptr() % 16
@@ -554,11 +557,12 @@ def _launch_decim(x_u8: torch.Tensor, halo: torch.Tensor,
                          f"16-byte aligned on {x_u8.device}, got "
                          f"{coefs.dtype}{tuple(coefs.shape)}@{coefs.device}")
     lib = kernels.load()
-    stream = torch.cuda.current_stream(x_u8.device).cuda_stream
-    rc = lib.dsd2dxd_fused_decim(
-        halo.data_ptr(), x_u8.data_ptr(), coefs.data_ptr(),
-        out.data_ptr(), None if peak is None else peak.data_ptr(),
-        ctypes.byref(params), stream)
+    with kernels.launch_device(x_u8.device) as (stream, dev):
+        rc = lib.dsd2dxd_fused_decim(
+            halo.data_ptr(), x_u8.data_ptr(), coefs.data_ptr(),
+            out.data_ptr(), None if peak is None else peak.data_ptr(),
+            ctypes.byref(params), stream,
+            dev if device_index is None else device_index)
     if rc != 0:
         raise RuntimeError(f"fused_decim ({'+'.join(modes)}) launch failed: "
                            f"CUDA error {rc}")
@@ -573,8 +577,8 @@ def fused_decim_cuda(x_u8: torch.Tensor, halo: torch.Tensor, tile_key: int,
                      cfg: StepConfig, big_endian: bool = False,
                      n_valid: Optional[int] = None,
                      block_out: Optional[int] = None):
-    """Launch the kernel on the current stream, with the chain's
-    ``kernel_coefs`` on the card. Same contract as
+    """Launch the kernel on the current stream of x's device, with the
+    chain's ``kernel_coefs`` on the card. Same contract as
     ``fused_decim_reference``; raises if the launch fails."""
     c, t = x_u8.shape
     t_out = t * 8 // decimation(chain)
@@ -609,16 +613,45 @@ def fused_head_cuda(x_u8: torch.Tensor, halo: torch.Tensor,
     return out
 
 
+def make_head(chain: Sequence[Stage], device):
+    """The float head of the 48k step, on `device`:
+
+    head(x_u8 (C, T) uint8, halo (C, H) uint8) -> (C, T_out) f32, the
+    gain-1 undithered cascade of the tile. A CUDA tensor launches K1e
+    (``fused_head_cuda``, or raises); a CPU tensor runs
+    ``fused_decim_cascade``."""
+    chain = tuple(chain)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    taps = [p.taps.to(device) for p in params_from_chain(chain)]
+    coefs = kernel_coefs(chain, device)
+
+    def head(x_u8: torch.Tensor, halo: torch.Tensor) -> torch.Tensor:
+        if x_u8.device != device:
+            raise ValueError(f"head built for {device}, got {x_u8.device}")
+        if x_u8.is_cuda:
+            return fused_head_cuda(x_u8, halo, coefs, chain)
+        if x_u8.device.type == "cpu":
+            return fused_decim_cascade(x_u8, halo, taps, chain, 1.0)
+        raise ConfigError(f"no head path on {x_u8.device}")
+
+    return head
+
+
 def kernel_occupancy(chain: Sequence[Stage],
                      block_out: Optional[int] = None) -> dict:
-    """K1 on the card at `chain`'s layout: shared memory per block,
-    resident blocks and warps per SM (cudaOccupancyMaxActiveBlocksPer
-    Multiprocessor), registers per thread and local (stack) bytes per
+    """K1 on the current card at `chain`'s layout: shared memory per
+    block, resident blocks and warps per SM (cudaOccupancyMaxActiveBlocks
+    PerMultiprocessor), registers per thread and local (stack) bytes per
     thread (cudaFuncGetAttributes)."""
     lay = kernel_layout(chain, chain_halo_bytes(chain),
                         block_out or block_out_for(chain))
     res = (ctypes.c_int * 4)()
-    rc = kernels.load().dsd2dxd_fused_decim_attrs(lay.smem_bytes, res)
+    device = torch.device("cuda", torch.cuda.current_device())
+    lib = kernels.load()
+    with kernels.launch_device(device) as (_stream, dev):
+        rc = lib.dsd2dxd_fused_decim_attrs(lay.smem_bytes, res, dev)
     if rc != 0:
         raise RuntimeError(f"fused_decim attributes: CUDA error {rc}")
     return {"smem_bytes": lay.smem_bytes, "blocks_per_sm": res[0],
@@ -686,9 +719,9 @@ def finish_cuda(z: torch.Tensor, gain: float, tile_key: int,
     peak = torch.zeros(1, dtype=torch.float32, device=z.device)
     p = finish_params(n, c, gain, tile_key, cfg, big_endian, n_valid,
                       run_frames)
-    stream = torch.cuda.current_stream(z.device).cuda_stream
-    rc = lib.dsd2dxd_finish(z.data_ptr(), out.data_ptr(), peak.data_ptr(),
-                            ctypes.byref(p), stream)
+    with kernels.launch_device(z.device) as (stream, dev):
+        rc = lib.dsd2dxd_finish(z.data_ptr(), out.data_ptr(),
+                                peak.data_ptr(), ctypes.byref(p), stream, dev)
     if rc != 0:
         raise RuntimeError(f"finish (K2) launch failed: CUDA error {rc}")
     count_launch("K2")

@@ -55,7 +55,6 @@ from dsd2dxd_tpu_torch import kernels
 from dsd2dxd_tpu_torch.ops import fused
 from dsd2dxd_tpu_torch.ops.plan import (
     build_plan,
-    params_from_chain,
     plan_banded_natural,
     tree_sum,
 )
@@ -289,11 +288,11 @@ def finish_tail_cuda(y: torch.Tensor, hist: torch.Tensor, table: TailTable,
                           f"{_TAIL_MAX_SMEM}")
     out = torch.empty(n_out * c * bps, dtype=torch.uint8, device=y.device)
     peak = torch.zeros(1, dtype=torch.float32, device=y.device)
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    rc = lib.dsd2dxd_finish_tail(
-        y.data_ptr(), hist.data_ptr(), table.coefs.data_ptr(),
-        table.offs.data_ptr(), out.data_ptr(), peak.data_ptr(),
-        ctypes.byref(p), stream)
+    with kernels.launch_device(y.device) as (stream, dev):
+        rc = lib.dsd2dxd_finish_tail(
+            y.data_ptr(), hist.data_ptr(), table.coefs.data_ptr(),
+            table.offs.data_ptr(), out.data_ptr(), peak.data_ptr(),
+            ctypes.byref(p), stream, dev)
     if rc != 0:
         raise RuntimeError(f"finish (K2t) launch failed: CUDA error {rc}")
     fused.count_launch("K2t")
@@ -327,8 +326,7 @@ def make_rational_step(chain: Sequence[Stage], cfg: StepConfig, device,
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    taps = [p.taps.to(device) for p in params_from_chain(head)]
-    coefs = fused.kernel_coefs(head, device)
+    run_head = fused.make_head(head, device)
     table = kernel_table(rp, device) if device.type == "cuda" else None
     gain = fused._gain32(cfg)
     hist_shape = (cfg.channels, rp.p_in)
@@ -352,18 +350,15 @@ def make_rational_step(chain: Sequence[Stage], cfg: StepConfig, device,
                 f"{hist.dtype}{tuple(hist.shape)}@{hist.device}")
         if x_u8.device != device:
             raise ValueError(f"step built for {device}, got {x_u8.device}")
+        y = run_head(x_u8, halo)  # K1e on a card, plain on the CPU
         if x_u8.is_cuda:
-            y = fused.fused_head_cuda(x_u8, halo, coefs, head)
             wire, peak = finish_tail_cuda(y, hist, table, rp, gain,
                                           tile_key, cfg, big_endian, n_valid)
             new_hist = y[:, y.shape[1] - rp.p_in:].clone()
-        elif x_u8.device.type == "cpu":
-            y = fused.fused_decim_cascade(x_u8, halo, taps, head, 1.0)
+        else:
             z, new_hist = rational_tail_reference(y, hist, rp)
             wire, peak = fused.finish_reference(z, gain, tile_key, cfg,
                                                 big_endian, n_valid)
-        else:
-            raise ConfigError(f"no 48k-family path on {x_u8.device}")
         new_halo = x_u8[:, cfg.tile_bytes - halo_bytes:].clone()
         return wire, peak, (new_halo, new_hist)
 

@@ -187,9 +187,9 @@ def dma_probe_cuda(x: torch.Tensor, mode: str, g: Geometry, rows: int,
                                                       n_blocks * g.k_sub)
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
     p = _params(mode, g, rows, n_blocks, x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.dsd2dxd_dma_probe(x.data_ptr(), out.data_ptr(), _CODE[mode],
-                               ctypes.byref(p), stream)
+    with kernels.launch_device(x.device) as (stream, dev):
+        rc = lib.dsd2dxd_dma_probe(x.data_ptr(), out.data_ptr(),
+                                   _CODE[mode], ctypes.byref(p), stream, dev)
     if rc != 0:
         raise RuntimeError(f"dma probe ({mode}) launch failed: CUDA error "
                            f"{rc}")

@@ -231,11 +231,11 @@ def probe_step_cuda(x_u8: torch.Tensor, halo: torch.Tensor,
     p = probe_params(chain, cfg, halo.shape[1], tile_key, n,
                      block_out or probe_block_out(chain))
     lib = kernels.load()
-    stream = torch.cuda.current_stream(x_u8.device).cuda_stream
-    rc = lib.dsd2dxd_probe_step(halo.data_ptr(), x_u8.data_ptr(),
-                                taps_flat.data_ptr(), out.data_ptr(),
-                                peak.data_ptr(), _CODE[rung], ctypes.byref(p),
-                                stream)
+    with kernels.launch_device(x_u8.device) as (stream, dev):
+        rc = lib.dsd2dxd_probe_step(halo.data_ptr(), x_u8.data_ptr(),
+                                    taps_flat.data_ptr(), out.data_ptr(),
+                                    peak.data_ptr(), _CODE[rung],
+                                    ctypes.byref(p), stream, dev)
     if rc != 0:
         raise RuntimeError(f"probe step ({rung}) launch failed: CUDA error "
                            f"{rc}")

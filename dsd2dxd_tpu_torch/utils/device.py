@@ -1,12 +1,16 @@
 """Device selection and the toolchain probe for the port.
 
-Counterpart of ``dsd2dxd_tpu/utils/device.py``. There is no implicit
-fallback: ``device=None`` means the first CUDA device, and without one it
-raises. The CPU runs only when a caller asks for it by name (the tests).
+Counterpart of ``dsd2dxd_tpu/utils/device.py`` (``batch_devices``,
+``stream_mesh`` as ``stream_devices``). There is no implicit fallback:
+``device=None`` means the first CUDA device, and without one it raises.
+The CPU runs only when a caller asks for it by name (the tests). Not
+ported: ``apply_platform_env`` and ``enable_compile_cache``, settings of
+JAX and XLA.
 """
 
 from __future__ import annotations
 
+import os
 import shutil
 import subprocess
 import sys
@@ -34,6 +38,31 @@ def resolve_device(device=None) -> torch.device:
             raise ConfigError(f"{dev} requested but only "
                               f"{torch.cuda.device_count()} CUDA devices")
     return dev
+
+
+def batch_devices() -> list[torch.device]:
+    """Devices for file-level data parallelism: the CLI round-robins a
+    batch of files over them, one pipeline per device (the reference's
+    one file per thread, src/main.rs:279-297). Every CUDA device; raises
+    ConfigError where there is none, as ``resolve_device`` does."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 1:
+        raise ConfigError("no CUDA device: pass device='cpu' to run the "
+                          "plain PyTorch path explicitly")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def stream_devices() -> list[torch.device] | None:
+    """The devices that ONE stream's overlap-save tiles are spread over
+    (``parallel/sharded.py``): every CUDA device when
+    DSD2DXD_SHARD_STREAM=1 and there are at least two, else None. Opt-in,
+    as in the JAX package: file-level parallelism is the better default
+    for a batch; tile sharding is for one long file."""
+    if os.environ.get("DSD2DXD_SHARD_STREAM") != "1":
+        return None
+    n = torch.cuda.device_count()
+    if n < 2:
+        return None
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def card_label() -> str:

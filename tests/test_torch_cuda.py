@@ -605,3 +605,138 @@ def test_probe_step_matches_plain_on_card(cuda_device, block_out):
             assert torch.equal(ko, ro), rung
         if kp is not None:
             assert float(kp) == float(rp)
+
+
+# -- several devices: the sharded route, the device check ----------------------
+
+@pytest.mark.parametrize("out_hz", [352800, 96000], ids=["div8", "96k"])
+def test_sharded_on_one_card_twice_equals_streaming(cuda_device, out_hz):
+    """parallel/sharded over [cuda:0, cuda:0] (two staging rings on one
+    card): every tile's wire bytes and peak equal to the streaming step's
+    at 24-bit TPDF and f32 FPD; one K1 (K1e + K2t) launch per tile, and
+    one K1e warm launch per 48k tile after the first."""
+    from dsd2dxd_tpu_torch.tools import shardcheck
+
+    devs = [cuda_device, cuda_device]
+    chain = get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD64, out_hz)
+    fused.reset_launch_counts()
+    res = shardcheck.check_cell(DsdRate.DSD64, out_hz, devs, 2, 256)
+    assert res["equal"], res
+    n = res["tiles"]
+    if rational.rational_head_len(chain) is None:
+        assert fused.KERNEL_LAUNCHES == 2 * 2 * n  # 2 epilogues, 2 routes
+    else:
+        assert fused.MODE_LAUNCHES["K2t"] == 2 * 2 * n
+        assert fused.MODE_LAUNCHES["K1e"] == 2 * (2 * n + n - 1)
+
+
+def test_launch_refuses_another_device_index(cuda_device):
+    """The C entry refuses a device index other than its tensors' (here
+    device_count(), which no card has), and the launch is not counted."""
+    chain = get_chain(*CELLS["E"])
+    cfg = StepConfig(channels=2, tile_bytes=4096, bit_depth=24,
+                     dither=DitherType.NONE, level_db=0.0)
+    x = torch.zeros((2, 4096), dtype=torch.uint8, device=cuda_device)
+    halo = fused.init_fused_halo(chain, 2, cuda_device)
+    coefs = fused.kernel_coefs(chain, cuda_device)
+    out = torch.empty(4096 * 2 * 3, dtype=torch.uint8, device=cuda_device)
+    params = fused._kernel_params(chain, cfg, halo.shape[1], 0, False, 4096)
+    before = fused.KERNEL_LAUNCHES
+    with pytest.raises(RuntimeError, match="CUDA error 101"):
+        fused._launch_decim(x, halo, coefs, out, None, params, ("K1a",),
+                            device_index=torch.cuda.device_count())
+    assert fused.KERNEL_LAUNCHES == before
+    fused._launch_decim(x, halo, coefs, out, None, params, ("K1a",))
+    assert fused.KERNEL_LAUNCHES == before + 1
+
+
+def _cards(n_min: int = 2) -> list:
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < n_min:
+        pytest.skip(f"needs {n_min} or more cards, this machine has {n}")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("out_hz", [352800, 96000], ids=["div8", "96k"])
+def test_sharded_over_every_card_equals_streaming(out_hz):
+    """parallel/sharded over every card (two or more): byte-equal to the
+    streaming step on card 0, tile by tile, at 24-bit TPDF and f32 FPD."""
+    from dsd2dxd_tpu_torch.tools import shardcheck
+
+    res = shardcheck.check_cell(DsdRate.DSD64, out_hz, _cards(), 2, 256)
+    assert res["equal"], res
+
+
+def test_cli_round_robin_over_every_card(tmp_path, monkeypatch):
+    """A batch of one more file than cards: file i converts on card i mod
+    n, every output byte-equal to the same file converted on card 0
+    alone."""
+    import dsd2dxd_tpu_torch.cli.dsd2dxd as cli
+    from dsd2dxd_tpu_torch.formats.dsf import write_dsf
+    from dsd2dxd_tpu_torch.pipeline import engine
+
+    cards = _cards()
+    monkeypatch.setattr(engine, "_DEFAULT_TILE_TARGET", 256 * 1024)
+    rng = np.random.default_rng(8)
+    src = tmp_path / "in"
+    src.mkdir()
+    files = [src / f"t{i}.dsf" for i in range(len(cards) + 1)]
+    for f in files:
+        write_dsf(f, rng.integers(0, 256, (2, 600_000), dtype=np.uint8),
+                  2_822_400)
+    seen = {}
+    convert_file = cli.convert_file
+
+    def recording(path, *a, device=None, **k):
+        conv = convert_file(path, *a, device=device, **k)
+        seen[path.name] = conv.stats["device"]
+        return conv
+
+    monkeypatch.setattr(cli, "convert_file", recording)
+    out_rr, out_one = tmp_path / "rr", tmp_path / "one"
+    out_rr.mkdir()
+    out_one.mkdir()
+    args = ["-o", "w", "-q", *map(str, files)]
+    assert cli.run(["-p", str(out_rr), *args]) == 0
+    assert seen == {f.name: str(cards[i % len(cards)])
+                    for i, f in enumerate(files)}
+    assert cli.run(["-p", str(out_one), *args], device="cuda:0") == 0
+    for f in files:
+        assert ((out_rr / "in" / f"{f.stem}.wav").read_bytes()
+                == (out_one / "in" / f"{f.stem}.wav").read_bytes())
+
+
+@pytest.mark.parametrize("out_hz,bits,output", [
+    (352800, 24, OutputType.WAV), (96000, 24, OutputType.WAV),
+    (192000, 32, OutputType.AIFC)], ids=["div8", "96k", "192k-f32"])
+def test_engine_sharded_over_every_card(tmp_path, monkeypatch, out_hz, bits,
+                                        output):
+    """DSD2DXD_SHARD_STREAM=1 with two or more cards (stream_devices
+    unpatched): the engine spreads the stream over every card, and the
+    file is byte-equal to the streaming conversion's."""
+    from dsd2dxd_tpu_torch.formats.dsf import write_dsf
+    from dsd2dxd_tpu_torch.pipeline import engine
+
+    cards = _cards()
+    monkeypatch.setattr(engine, "_DEFAULT_TILE_TARGET", 256 * 1024)
+    src = tmp_path / "t.dsf"
+    rng = np.random.default_rng(9)
+    write_dsf(src, rng.integers(0, 256, (2, 3_000_001), dtype=np.uint8),
+              2_822_400)
+    outs, stats = [], []
+    for shard in ("0", "1"):
+        monkeypatch.setenv("DSD2DXD_SHARD_STREAM", shard)
+        d = tmp_path / shard
+        d.mkdir()
+        conv = Converter.from_container(
+            bit_depth=bits, output=output, level_db=-1.0, output_rate=out_hz,
+            out_dir=d, dither=DitherType.TPDF if bits < 32 else DitherType.FPD,
+            filt=FilterType.EQUIRIPPLE, append_rate=False, base_dir=tmp_path,
+            input_path=src)
+        conv.do_conversion()
+        outs.append(conv.output_path().read_bytes())
+        stats.append(conv.stats)
+    assert stats[0]["devices"] == ["cuda:0"]
+    assert stats[1]["devices"] == [str(c) for c in cards]
+    assert stats[1]["tiles"] == stats[0]["tiles"] >= len(cards)
+    assert outs[0] == outs[1]

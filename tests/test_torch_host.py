@@ -186,10 +186,10 @@ def test_writers_byte_identical(kind, bits, with_id3):
     assert len(outs[0]) > 500 * 2 * (bits // 8)
 
 
-@pytest.mark.parametrize("name", ["njad.cc", "flac.cc"])
+@pytest.mark.parametrize("name", ["njad.cc", "flac.cc", "dsdkit.cc"])
 def test_native_sources_are_byte_copies(name):
-    """The port's NJAD and FLAC C++ are the JAX package's, byte for byte
-    (the port builds its own library from them)."""
+    """The port's NJAD, FLAC and modulator C++ are the JAX package's,
+    byte for byte (the port builds its own library from them)."""
     from dsd2dxd_tpu_torch.native import loader
 
     assert name in loader.SOURCES

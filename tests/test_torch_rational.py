@@ -651,7 +651,7 @@ def test_digest_covers_every_csrc_file(tmp_path):
     assert set(kernels.SOURCES) == {"fused_decim.cu", "finish.cu",
                                    "probes.cu"}
     assert sorted(f.name for f in kernels.CSRC.glob("*.cuh")) == [
-        "epilogue.cuh", "tree_sum.cuh"]
+        "device_check.cuh", "epilogue.cuh", "tree_sum.cuh"]
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
     before = kernels._digest(csrc)
