@@ -10,7 +10,11 @@ one line per chain); any failed check exits non-zero:
 2. build: compiles csrc/fused_decim.cu (K1a-K1e), csrc/finish.cu (K2, both
    modes) and csrc/probes.cu (P1, P2) with one nvcc each, started
    together, and links them; prints every kernel's registers, spills and
-   stack frame; K2's kernels must have no spill and no stack frame. Then
+   stack frame; K2's kernels must have no spill and no stack frame, K1's
+   line must be K1_PTXAS (its body, csrc/decim_body.cuh, is shared with
+   P2's rungs), and the log must hold P1's 6 and P2's 6 kernels. SASS
+   (tools/sasscount.py): P1 noflush keeps dma's global loads; the
+   probes' and K1's local loads and stores are printed. Then
    the host library of NJAD, FLAC and the modulator (native/src, g++),
    timed; the tone files' modulator (ops/dsm.py, native) against the
    loop written out here, on 0.1 s of the DSD64 tone: equal.
@@ -115,21 +119,29 @@ one line per chain); any failed check exits non-zero:
     bodies on the CPU: within 1 LSB, >= 99.9 % identical, peak within
     1e-4.
 13. probes: the floor probes of K1 (dsd2dxd_tpu_torch/tools). Every P1
-    mode (dmabench: noop, noflush, dma, halo0, contig, bspec) at each of
-    K1's blocks against its plain version on 2 staged 16 MiB/ch stereo
-    tiles, exact (noflush: each element of its shared output block is
-    some block's); every P2 rung (floorstrip on synth_chain(0.0): dma,
-    unpack, cas0a, cas0, quant, and full: K1 itself at the ladder's
-    block_out) on 2 staged 16 MiB/ch tiles, dma, unpack, cas0a and cas0
-    bit-equal, quant and full at TPDF with K1's limits. The one PyTorch
-    call that computes each P1 mode where there is one (noop: a repeat of
-    an arange; dma, halo0: a slice and a cast; contig, bspec: a view, a
-    transpose and a cast) is held equal to the plain version, then timed
-    beside it. Then both tools through their entry points at 16 MiB/ch
-    stereo, 8 staged tiles (268 MB, more than the 50 MB L2), with their
-    launch counts read around each run; and tools/finishsweep.py through
-    its entry point at 512 and 2048 frames per run, which is what launches
-    K2 "from z" (no conversion does, since the step takes K2t).
+    mode (dmabench: noop, noflush, dma, halo0, contig, bspec; all but
+    bspec copy their window with K1's 16-byte copy) at each of K1's
+    blocks against its plain version on 2 staged 16 MiB/ch stereo tiles,
+    exact (noflush: the last block's values). Every P2 rung kernel
+    (floorstrip: K1's body cut short: dma, unpack, cas0a, cas0, quant at
+    NONE and TPDF) on both ladders' chains, synth_chain(0.0) and config
+    1's ÷8 chain, at K1's block_out, a random halo and n_valid 9 short,
+    2 tiles of 16 MiB/ch: bit-equal (peaks too) but quant TPDF, within 1
+    LSB and >= 99.9 % identical with K1's TPDF error limits; full (K1
+    itself) against fused_decim_reference with K1's limits. The one
+    PyTorch call that computes each P1 mode where there is one (noop: a
+    repeat of an arange; dma, halo0: a slice and a cast; contig, bspec: a
+    view, a transpose and a cast) is held equal to the plain version, then
+    timed beside it. Then both tools through their entry points at 16
+    MiB/ch stereo, 8 staged tiles (268 MB, more than the 50 MB L2), the
+    stream held by a sleep kernel while each run is enqueued, with their
+    launch counts read around each run: P1 noflush must not be slower
+    than dma at any block; the P2 ladder on both chains, each row
+    with its increment, its floor (bytes, 2 x f32 operations: no FMA, and
+    Philox at TPDF) and its share, rows slower than full's slowest rep
+    marked; and tools/finishsweep.py through its entry point at 512 and
+    2048 frames per run, which is what launches K2 "from z" (no
+    conversion does, since the step takes K2t).
 14. timing: kernel and plain version per 16 MiB/ch stereo tile, CUDA
     events over 8 staged tiles, plain-kernel-kernel-plain, for K1a (÷8),
     ÷16, ÷64 and ÷128 at 24-bit TPDF and ÷64 at 20-bit TPDF (K1d); for
@@ -162,6 +174,7 @@ the last line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import hashlib
 import io
@@ -184,32 +197,9 @@ SECONDS_CONFIG4 = 60  # DSD256: 169 MB of .dsf for a minute
 T_START = time.perf_counter()
 TOL_NONE_LSB = 5
 TOL_DITHER_LSB = 1
-# an H100 SXM's published peaks: HBM3 bytes/s, f32 FLOP/s outside the
-# tensor cores (the least time for a kernel's work: bound())
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-# 32-bit integer operations per second of one kind: an H100 SM has 64
-# INT32 lanes beside its 128 FP32 lanes (NVIDIA H100 Tensor Core GPU
-# Architecture white paper, the SM's four partitions of 16 INT32 and 32
-# FP32 cores), so a quarter of the FP32 rate, which counts an FMA as two:
-# 132 SMs x 64 lanes x 1.98 GHz
-PEAK_INT32_OPS = PEAK_F32_FLOPS / 4
-# integer operations that one Philox4x32-10 call of the epilogue needs
-# (epilogue.cuh: counter (frame, channel, 0, 0), words 0 and 1 of the
-# result used). A full round is two 32x32->64 multiplies (the high and the
-# low word of a product come out of one wide multiply) and two three-input
-# xors. The first round multiplies one counter word that is zero, and its
-# xors have two inputs; of the last round only one product and one xor are
-# read, of the round before it both products and one xor: 1 + 8 * 2 + 1 =
-# 18 multiplies and 2 + 7 * 2 + 1 + 1 = 18 xors (the compiled kernels hold
-# 17.25 and 17.5 per call, tools/sasscount.py). The key schedule is the
-# same for every sample of a launch and is not counted. The wide multiply
-# runs on the FMA pipe and the xor on the ALU pipe, 64 lanes per SM each,
-# so the two kinds may overlap: the bound takes the larger count alone,
-# the lower of the two readings of the card.
-PHILOX_MULTIPLIES = 18
-PHILOX_XORS = 18
-PHILOX_INT_OPS = max(PHILOX_MULTIPLIES, PHILOX_XORS)
+# K1's ptxas line (fused_decim_kernel: registers, spill bytes, stack
+# bytes): 64 registers (4 blocks of 256 threads per SM), no local memory
+K1_PTXAS = (64, 0, 0)
 
 
 def fail(msg: str) -> None:
@@ -398,7 +388,14 @@ def bound(nbytes: float, flops: float, int_ops: float = 0.0):
     """(ms, "bytes" or "operations"): the least time the card could take
     to move `nbytes` (each input read once, each output written once), do
     `flops` f32 operations and do `int_ops` 32-bit integer operations
-    (the largest of the three times; they overlap on a card)."""
+    (the largest of the three times; they overlap on a card), at an H100
+    SXM's published peaks (dsd2dxd_tpu_torch/tools/__init__.py)."""
+    from dsd2dxd_tpu_torch.tools import (
+        PEAK_BYTES_PER_S,
+        PEAK_F32_FLOPS,
+        PEAK_INT32_OPS,
+    )
+
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
     to = max(flops / PEAK_F32_FLOPS, int_ops / PEAK_INT32_OPS) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -408,8 +405,9 @@ def p1_library_call(x, mode: str, g, rows: int, n_blocks: int):
     """The one PyTorch call that computes P1's `mode` at the card's
     geometry (k_sub = B, H <= B: block i of row c stores words
     iB + H .. iB + H + B of its window, or of its slab row), or None where
-    there is none: noflush's output is whichever block wrote each element
-    last. Timed beside the kernel; the port never calls it."""
+    there is none: noflush's output, the last block's values, is one slice
+    of one block, which no call computes from the stream the probe copies.
+    Timed beside the kernel; the port never calls it."""
     import torch
 
     h, b = g.halo_words, g.block_words
@@ -424,19 +422,6 @@ def p1_library_call(x, mode: str, g, rows: int, n_blocks: int):
         return x.view(n_blocks, rows, g.win)[:, :, h:].transpose(
             0, 1).float().reshape(rows, n_blocks * b)
     return None
-
-
-def fir_flops(chain, frames: int, channels: int) -> int:
-    """f32 operations of a ÷R cascade for `frames` output frames per
-    channel: every stage's outputs per final frame times its taps, one
-    product and one sum each."""
-    r, cum, macs = 1, 1, 0
-    for s in chain:
-        r *= s.M
-    for s in chain:
-        cum *= s.M
-        macs += s.n_taps * (r // cum)
-    return 2 * macs * frames * channels
 
 
 def ptxas_entries(log: str) -> list:
@@ -519,19 +504,45 @@ def main() -> int:
           f"library built earlier), got {k2_entries}")
     check(all(e[2] == 0 and e[3] == 0 for e in k2_entries),
           f"a K2 kernel spills or keeps a stack frame: {k2_entries}")
+    k1_entries = [e[1:] for e in entries if e[0] == "fused_decim_kernel<>"]
+    check(k1_entries == [K1_PTXAS],
+          f"K1's ptxas line (registers, spill bytes, stack bytes) is "
+          f"{k1_entries}, not {K1_PTXAS}")
+    p1_entries = [e for e in entries if e[0].startswith("dma_probe_kernel")]
+    p2_entries = [e for e in entries if e[0].startswith("probe_step_kernel")]
+    check(len(p1_entries) == 6 and len(p2_entries) == 6,
+          f"want P1's 6 modes and P2's 6 rung kernels in the build log, got "
+          f"{p1_entries} and {p2_entries}")
     ptxas_text = "; ".join(f"{n}: {r} regs, {sp} spill, {st} stack"
                            for n, r, sp, st in entries)
+    # the probes' code: noflush keeps dma's loads (its one store is behind
+    # a run-time condition), and the rungs' local memory beside K1's
+    from dsd2dxd_tpu_torch.tools import sasscount
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        sass = sasscount.main(["--match", "probe"])
+    nf, dm = sass["dma_probe_kernel<1>"], sass["dma_probe_kernel<2>"]
+    check(nf["LDG"] > 0 and nf["LDG"] == dm["LDG"],
+          f"P1 noflush lost its loads: LDG {nf['LDG']}, dma's {dm['LDG']}")
+    sass_text = "; ".join(
+        f"{n}: {c['all']} instructions, LDG {c['LDG']}, STG {c['STG']}, "
+        f"LDL {c['LDL']}, STL {c['STL']}"
+        for n, c in sorted(sass.items())
+        if n.startswith(("fused_decim", "probe_step", "dma_probe")))
     phase("build", f"{build_s:.1f} s for {', '.join(kernels.SOURCES)} "
           f"(one nvcc each, in parallel; sm_90a; fused_decim: one kernel, "
           f"its 11 epilogues and the K1e planar head chosen per launch, "
           f"finish: 11 epilogues 'from z' + the fused mode at 16, 18 and "
           f"19 taps per phase, its epilogue chosen per launch, probes: 6 P1 "
-          f"modes + 7 P2 rungs); ptxas"
+          f"modes + 6 P2 rung kernels on K1's body: dma, unpack, cas0a, "
+          f"cas0, quant NONE, quant TPDF); K1 {K1_PTXAS[0]} registers, "
+          f"{K1_PTXAS[1]} spill, {K1_PTXAS[2]} stack; ptxas"
           f"{'' if kernels.BUILD_SECONDS else ' (of the earlier build)'}: "
           f"{ptxas_text}; g++ of native/src/njad.cc, flac.cc and dsdkit.cc "
           f"(the host library of NJAD, FLAC and the modulator) {host_s:.1f} "
           f"s; the tones' modulator (ops/dsm.py, native) equal to the "
-          f"inline loop on 0.1 s of DSD64")
+          f"inline loop on 0.1 s of DSD64; SASS (tools/sasscount.py): "
+          f"{sass_text}")
     occ_text = []
     for mode, key in (("K1a ÷8", (E, DsdRate.DSD64, 352800)),
                       ("K1b ÷16", (E, DsdRate.DSD64, 176400)),
@@ -1587,7 +1598,8 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # 13. probes: P1 (dmabench) and P2 (floorstrip) ---------------------------
-    from dsd2dxd_tpu_torch.tools import dmabench, floorstrip
+    from dsd2dxd_tpu_torch import tools
+    from dsd2dxd_tpu_torch.tools import PHILOX_INT_OPS, dmabench, floorstrip
 
     def ev_ms(fn, n) -> float:
         """Mean ms of fn(i), i < n, between two CUDA events (warmed)."""
@@ -1618,13 +1630,9 @@ def main() -> int:
                 k = dmabench.dma_probe_cuda(src, mode, g, 2, n)
                 r = dmabench.dma_probe_reference(src, mode, g, 2, n)
                 torch.cuda.synchronize()
-                if mode == "noflush":
-                    ok = bool((k.unsqueeze(1) == r).any(dim=1).all())
-                    err = 0.0 if ok else float("inf")
-                else:
-                    ok = k.shape == r.shape and torch.equal(k, r)
-                    err = (float((k - r).abs().max())
-                           if k.shape == r.shape else float("inf"))
+                ok = k.shape == r.shape and torch.equal(k, r)
+                err = (float((k - r).abs().max())
+                       if k.shape == r.shape else float("inf"))
                 check(ok, f"P1 {mode} at block {bb} B: kernel differs from "
                       f"its plain version ({err})")
                 p1_err[mode] = max(p1_err[mode], err)
@@ -1635,75 +1643,96 @@ def main() -> int:
             del x, xr, k, r, lib
     phase("probes", f"P1 vs plain: {len(dmabench.KERNEL_MODES)} modes x "
           f"K1's blocks {blocks} (B/ch, halo B), 2 tiles of 16 MiB/ch "
-          f"stereo each: exact (noflush: every element of the shared block "
-          f"is some block's); the library calls of noop, dma, halo0, "
-          f"contig and bspec equal the plain version")
+          f"stereo each: exact (noflush: the last block's values); the "
+          f"library calls of noop, dma, halo0, contig and bspec equal the "
+          f"plain version")
 
-    chain_p, cfg_p, bo_p = floorstrip.probe_config(16)
-    taps_p = [torch.tensor(np.asarray(s.taps, dtype=np.float32), device=dev)
-              for s in chain_p]
-    flat_p = torch.cat(taps_p)
-    halo_p = fused.init_fused_halo(chain_p, 2, dev)
-    p2_err = {r: 0.0 for r in floorstrip.KERNEL_RUNGS}
-    q_errs, xs_p = [], []
-    full_p = floorstrip.make_probe_step(chain_p, cfg_p, "full", dev, bo_p)
-    full_st = new_stats()
-    for t in range(2):
-        x = torch.from_numpy(rng.integers(0, 256, (2, cfg_p.tile_bytes),
-                                          dtype=np.uint8)).to(dev)
-        xs_p.append(x)
-        key = philox.tile_key(14, t)
-        y = None
-        for rung in floorstrip.KERNEL_RUNGS:
-            ko, kp = floorstrip.probe_step_cuda(x, halo_p, flat_p, chain_p,
-                                                cfg_p, rung, bo_p, key)
-            ro, rp = floorstrip.probe_step_reference(x, halo_p, taps_p,
-                                                     chain_p, cfg_p, rung,
-                                                     bo_p, key)
+    # P2: every rung against its plain version on both ladders' chains
+    p2_err, p2_plain, p2_in = {}, {}, {}
+    for cname in floorstrip.CHAINS:
+        chain_p, cfg_p, bo_p = floorstrip.probe_config(16, None, cname)
+        taps_p = [torch.tensor(np.asarray(s.taps, dtype=np.float32),
+                               device=dev) for s in chain_p]
+        halo_p = torch.from_numpy(rng.integers(
+            0, 256, (2, fused.chain_halo_bytes(chain_p)),
+            dtype=np.uint8)).to(dev)
+        cfgs = {d: dataclasses.replace(cfg_p, dither=d)
+                for d in floorstrip.QUANT_DITHERS}
+        steps = {floorstrip.kernel_name(r, d): (r, cfgs[d],
+                 floorstrip.make_probe_step(chain_p, cfgs[d], r, dev, bo_p))
+                 for r in floorstrip.KERNEL_RUNGS
+                 for d in floorstrip.QUANT_DITHERS
+                 if r == "quant" or d is T}
+        full_p = floorstrip.make_probe_step(chain_p, cfg_p, "full", dev, bo_p)
+        full_st = new_stats()
+        xs_p, q_errs, y = [], [], None
+        for t in range(2):
+            x = torch.from_numpy(rng.integers(0, 256, (2, cfg_p.tile_bytes),
+                                              dtype=np.uint8)).to(dev)
+            xs_p.append(x)
+            key = philox.tile_key(14, t)
+            n_valid = cfg_p.tile_bytes * 8 // fused.decimation(chain_p) - 9
+            for kname, (rung, cfg_k, step_k) in steps.items():
+                ko, kp = step_k(x, halo_p, key, n_valid)
+                ro, rp = floorstrip.probe_step_reference(
+                    x, halo_p, taps_p, chain_p, cfg_k, rung, bo_p, key,
+                    n_valid)
+                torch.cuda.synchronize()
+                d = (ko.double() - ro.double()).abs()
+                err = float(d.max())
+                p2_err[(cname, kname)] = max(p2_err.get((cname, kname), 0.0),
+                                             err)
+                if kname == "cas0":
+                    y = ro
+                if kname == "quant TPDF":
+                    same = float((d == 0).double().mean())
+                    check(err <= TOL_DITHER_LSB and same >= 0.999,
+                          f"P2 {cname} quant TPDF: {err} LSB, {same:.5f} "
+                          f"identical")
+                    f = y.double() * 2.0 ** 23
+                    e = ko.double() - f
+                    q_errs.append(e[f.abs() < 2 ** 23 - 4])
+                else:
+                    check(err == 0.0, f"P2 {cname} {kname}: kernel differs "
+                          f"from its plain version by {err}")
+                check((kp is None) == (rp is None)
+                      and (kp is None or float(kp) == float(rp)),
+                      f"P2 {cname} {kname}: peak {kp} vs {rp}")
+                del ko, ro, d
+            wk, pk, hk = full_p(x, halo_p, key)
+            wr, pr, _hr = fused.fused_decim_reference(x, halo_p, key, taps_p,
+                                                      chain_p, cfg_p)
             torch.cuda.synchronize()
-            d = (ko.double() - ro.double()).abs()
-            err = float(d.max())
-            p2_err[rung] = max(p2_err[rung], err)
-            if rung == "cas0":
-                y = ro
-            if rung == "quant":
-                same = float((d == 0).double().mean())
-                check(err <= TOL_DITHER_LSB and same >= 0.999,
-                      f"P2 quant: {err} LSB, {same:.5f} identical")
-                f = y.double() * 2.0 ** 23
-                e = ko.double() - f
-                q_errs.append(e[f.abs() < 2 ** 23 - 4])
-            else:
-                check(err == 0.0, f"P2 {rung}: kernel differs from its "
-                      f"plain version by {err}")
-            if kp is not None:
-                check(float(kp) == float(rp), f"P2 {rung}: peak {float(kp)} "
-                      f"vs {float(rp)}")
-            del ko, ro, d
-        wk, pk, hk = full_p(x, halo_p, key)
-        wr, pr, _hr = fused.fused_decim_reference(x, halo_p, key, taps_p,
-                                                  chain_p, cfg_p)
-        torch.cuda.synchronize()
-        check(torch.equal(hk, x[:, x.shape[1] - halo_p.shape[1]:]),
-              "P2 full: new halo differs")
-        tile_stats(full_st, "P2 full", wk, pk, wr, pr, y.T.reshape(-1), 24,
-                   T)
-        del wk, wr
-        halo_p = x[:, x.shape[1] - halo_p.shape[1]:].contiguous()
-    full_text = verdict("P2 full", 24, T, full_st)
-    e = torch.cat(q_errs)
-    q_rms, q_mean = float(e.pow(2).mean().sqrt()), float(e.mean())
-    check(0.45 < q_rms < 0.55 and abs(q_mean) < 0.01,
-          f"P2 quant TPDF error RMS {q_rms}, mean {q_mean}")
-    del e, q_errs, y
-    phase("probes", f"P2 vs plain on synth_chain(0.0) (÷64, block_out "
-          f"{bo_p}), 2 tiles of {cfg_p.tile_bytes} B/ch stereo: dma, unpack, "
-          f"cas0a, cas0 bit-equal (peaks too); quant 24-bit TPDF max "
-          f"{p2_err['quant']:g} LSB, error RMS {q_rms:.4f} mean "
-          f"{q_mean:+.5f}; full (K1 at block_out {bo_p}) vs "
-          f"fused_decim_reference {full_text}")
+            check(torch.equal(hk, x[:, x.shape[1] - halo_p.shape[1]:]),
+                  f"P2 {cname} full: new halo differs")
+            tile_stats(full_st, f"P2 {cname} full", wk, pk, wr, pr,
+                       y.T.reshape(-1), 24, T)
+            del wk, wr
+        full_text = verdict(f"P2 {cname} full", 24, T, full_st)
+        e = torch.cat(q_errs)
+        q_rms, q_mean = float(e.pow(2).mean().sqrt()), float(e.mean())
+        check(0.45 < q_rms < 0.55 and abs(q_mean) < 0.01,
+              f"P2 {cname} quant TPDF error RMS {q_rms}, mean {q_mean}")
+        del e, q_errs, y
+        phase("probes", f"P2 vs plain on {cname} (÷"
+              f"{fused.decimation(chain_p)}, taps "
+              f"{[s.n_taps for s in chain_p]}, K1's block_out {bo_p}), 2 "
+              f"tiles of {cfg_p.tile_bytes} B/ch stereo, a random halo, "
+              f"n_valid 9 short: dma, unpack, cas0a, cas0, quant NONE "
+              f"bit-equal (peaks too); quant 24-bit TPDF max "
+              f"{p2_err[(cname, 'quant TPDF')]:g} LSB, error RMS "
+              f"{q_rms:.4f} mean {q_mean:+.5f}; full (K1) vs "
+              f"fused_decim_reference {full_text}")
+        # the plain versions' times, per tile
+        for kname, (rung, cfg_k, _s) in steps.items():
+            p2_plain[(cname, kname)] = ev_ms(
+                lambda i, r=rung, c=cfg_k: floorstrip.probe_step_reference(
+                    xs_p[i], halo_p, taps_p, chain_p, c, r, bo_p, 7), 2)
+        p2_in[cname] = (chain_p, cfg_p.tile_bytes)
+        del xs_p
+        torch.cuda.empty_cache()
 
-    # the plain versions' times, per 16 MiB/ch stereo tile
+    # the P1 plain versions' times, per 16 MiB/ch stereo tile
     g2048 = dmabench.geometry(2048, dict(blocks)[2048])
     n2048 = tile16 // 2048
     xs1 = [torch.from_numpy(rng.integers(
@@ -1717,10 +1746,6 @@ def main() -> int:
         xr1[i] if m in ("contig", "bspec") else xs1[i], m, g2048, 2, n2048),
         2) for m in ("noop", "dma", "halo0", "contig", "bspec")}
     del xs1, xr1
-    p2_plain = {r: ev_ms(lambda i, r=r: floorstrip.probe_step_reference(
-        xs_p[i], halo_p, taps_p, chain_p, cfg_p, r, bo_p, 7), 2)
-        for r in floorstrip.KERNEL_RUNGS}
-    del xs_p
     torch.cuda.empty_cache()
 
     # both tools through their entry points, the launch counts around each
@@ -1731,22 +1756,51 @@ def main() -> int:
     check(all(p1_launches[m] > 0 for m in dmabench.KERNEL_MODES)
           and fused.KERNEL_LAUNCHES == 0,
           f"P1 modes not launched by dmabench: {p1_launches}")
-    floorstrip.reset_launch_counts()
-    fused.reset_launch_counts()
-    p2 = floorstrip.main(["--tile-mib", "16", "--reps", "8"])
-    p2_launches = dict(floorstrip.LAUNCHES)
-    p2_full = fused.KERNEL_LAUNCHES
-    check(all(p2_launches[r] > 0 for r in floorstrip.KERNEL_RUNGS)
-          and p2_full > 0,
-          f"P2 rungs not launched by floorstrip: {p2_launches}, full "
-          f"{p2_full}")
+    for bb in p1:
+        nf, dm = p1[bb]["med_ms"]["noflush"], p1[bb]["med_ms"]["dma"]
+        check(nf <= dm, f"P1 at block {bb} B: noflush {nf:.4f} ms is slower "
+              f"than dma {dm:.4f} ms (it is dma's copy without its output "
+              f"stream)")
+    phase("probes", "P1 noflush <= dma at every block: " + ", ".join(
+        f"{bb} B {p1[bb]['med_ms']['noflush']:.4f} <= "
+        f"{p1[bb]['med_ms']['dma']:.4f} ms" for bb in p1)
+        + f"; card [{label}]")
+    p2, p2_launches, p2_full = {}, {}, {}
+    for cname in floorstrip.CHAINS:
+        floorstrip.reset_launch_counts()
+        fused.reset_launch_counts()
+        p2[cname] = floorstrip.main(["--chain", cname, "--tile-mib", "16",
+                                     "--reps", "8"])
+        p2_launches[cname] = dict(floorstrip.LAUNCHES)
+        p2_full[cname] = fused.KERNEL_LAUNCHES
+        check(all(v > 0 for v in p2_launches[cname].values())
+              and p2_full[cname] > 0,
+              f"P2 kernels not launched by floorstrip on {cname}: "
+              f"{p2_launches[cname]}, full {p2_full[cname]}")
+        res = p2[cname]
+        full_max = max(res["ms"]["full"]) / tools.STAGED_TILES
+        rows_txt, prev = [], 0.0
+        for r, ms in res["med_ms"].items():
+            f_ms = res["floor"][r][0]
+            rows_txt.append(
+                f"{r} {ms:.4f} ms ({ms - prev:+.4f}; floor {f_ms:.4f} by "
+                f"{res['floor'][r][1]}, {f_ms / ms * 100:.1f} %"
+                + (", over full's slowest rep" if r != "full"
+                   and ms > full_max else "") + ")")
+            prev = ms
+        phase("probes", f"P2 ladder on {cname} through floorstrip's entry "
+              f"point, ms per {res['tile']} B/ch stereo tile (8 reps of 8 "
+              f"staged tiles; full's reps "
+              f"{min(res['ms']['full']) / tools.STAGED_TILES:.4f}-"
+              f"{full_max:.4f}): " + "; ".join(rows_txt)
+              + f"; launches {p2_launches[cname]} + {p2_full[cname]} K1 "
+              f"(full); card [{label}]")
     torch.cuda.empty_cache()
     p1_ms = {m: round(v, 4) for m, v in p1_plain.items()}
-    p2_ms = {r: round(v, 4) for r, v in p2_plain.items()}
+    p2_ms = {f"{c} {k}": round(v, 4) for (c, k), v in p2_plain.items()}
     phase("probes", f"timed through the entry points: dmabench launches "
-          f"{p1_launches}; floorstrip launches {p2_launches} + {p2_full} K1 "
-          f"(full); plain ms per 16 MiB/ch stereo tile: P1 at block 2048 B "
-          f"{p1_ms}, P2 {p2_ms}; P1's library calls at block 2048 B "
+          f"{p1_launches}; plain ms per tile: P1 at block 2048 B {p1_ms}, "
+          f"P2 {p2_ms}; P1's library calls at block 2048 B "
           f"{ {m: round(v, 4) for m, v in p1_lib.items()} }; card [{label}]")
 
     # K2 "from z" through its tool's entry point: no conversion launches it
@@ -1784,26 +1838,25 @@ def main() -> int:
             "ms": p1[2048]["med_ms"][m], "plain_ms": p1_plain[m],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": p1_lib.get(m)})
-    t_out = p2["tile"] * 8 // fused.decimation(chain_p)
-    h_p = fused.chain_halo_bytes(chain_p)
-    for r in floorstrip.KERNEL_RUNGS:
-        nbytes = 2 * (p2["tile"] + h_p) + 2 * t_out * 4
-        flops = {"dma": 0, "unpack": 2 * t_out * 64,
-                 "quant": fir_flops(chain_p, t_out, 2) + 4 * 2 * t_out}.get(
-            r, fir_flops(chain_p, t_out, 2))
-        b_ms, b_by = bound(nbytes, flops)
-        probe_rows.append({
-            "name": f"P2 probe_step ({r}; synth_chain(0.0), block_out "
-                    f"{p2['block_out']})",
-            "route": "cuda", "source": "dsd2dxd_tpu_torch/csrc/probes.cu",
-            "replaces": "tools/floorstrip.py:46 (_probe_step, "
-                        "pallas_call :226)",
-            "launches": p2_launches[r],
-            "launches_from": "tools/floorstrip.py (no conversion launches "
-                             "it)",
-            "max_abs_err": p2_err[r],
-            "ms": p2["med_ms"][r], "plain_ms": p2_plain[r],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    for cname, (chain_p, tile_p) in p2_in.items():
+        for kname in floorstrip.KERNELS:
+            b_ms, b_by = bound(*floorstrip.rung_work(kname, chain_p, tile_p,
+                                                     2))
+            probe_rows.append({
+                "name": f"P2 probe_step ({kname}; {cname}, block_out "
+                        f"{p2[cname]['block_out']}; K1's body cut short)",
+                "route": "cuda",
+                "source": "dsd2dxd_tpu_torch/csrc/probes.cu + "
+                          "csrc/decim_body.cuh",
+                "replaces": "tools/floorstrip.py:46 (_probe_step, "
+                            "pallas_call :226)",
+                "launches": p2_launches[cname][kname],
+                "launches_from": "tools/floorstrip.py (no conversion "
+                                 "launches it)",
+                "max_abs_err": p2_err[(cname, kname)],
+                "ms": p2[cname]["med_ms"][kname],
+                "plain_ms": p2_plain[(cname, kname)],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
     # 14. timing at bench.py's tile -------------------------------------------
     tile = 16 * 1024 * 1024
@@ -1851,7 +1904,7 @@ def main() -> int:
         bounds[mode] = bound(
             2 * (tile + fused.chain_halo_bytes(chain))
             + 2 * frames * (2 if bits == 16 else 3),
-            fir_flops(chain, frames, 2) + 4 * 2 * frames)
+            floorstrip.cascade_flops(chain) * frames * 2 + 4 * 2 * frames)
         audio = tile * 8 / key[1].hz
         phase("timing", f"{name} TPDF, 16 MiB/ch stereo tile ({audio:.2f} s "
               f"audio): kernel {k_ms:.3f} ms ({audio / k_ms * 1e3:.0f} "
@@ -1982,7 +2035,7 @@ def main() -> int:
             library_ms["K2t"] = tail_ms
             bounds["K1e"] = bound(
                 2 * (tile + fused.chain_halo_bytes(head)) + 2 * n_base * 4,
-                fir_flops(head, n_base, 2))
+                floorstrip.cascade_flops(head) * n_base * 2)
             bounds["K2"] = b_tpdf
             bounds["K2t"] = bt_tpdf
 

@@ -40,8 +40,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-MAX_STAGES = 8  # must equal MAX_STAGES in csrc/fused_decim.cu and probes.cu
-VEC = 4         # must equal VEC in csrc/fused_decim.cu
+MAX_STAGES = 8  # must equal MAX_STAGES in csrc/decim_body.cuh
+VEC = 4         # must equal VEC in csrc/decim_body.cuh
 
 _EPILOGUE_FIELDS = [
     ("gain", ctypes.c_float),
@@ -56,8 +56,9 @@ _EPILOGUE_FIELDS = [
 
 
 class DecimParams(ctypes.Structure):
-    """Mirror of ``struct DecimParams`` in csrc/fused_decim.cu, K1's block
-    geometry (``ops/fused.py::KernelLayout``) and epilogue (all fields 4
+    """Mirror of ``struct DecimParams`` in csrc/decim_body.cuh, K1's (and
+    the P2 rungs') block geometry (``ops/fused.py::KernelLayout``) and
+    epilogue (all fields 4
     bytes wide, so natural alignment matches the C layout; the loader
     also compares sizeof on both sides)."""
 
@@ -84,36 +85,6 @@ class DecimParams(ctypes.Structure):
         ("tap_off", ctypes.c_int * MAX_STAGES),
         ("n_out", ctypes.c_int * MAX_STAGES),
         ("half", ctypes.c_int * MAX_STAGES),
-        *_EPILOGUE_FIELDS,
-    ]
-
-
-class ProbeParams(ctypes.Structure):
-    """Mirror of ``struct ProbeParams`` in csrc/probes.cu, the P2 rungs'
-    block geometry (``tools/floorstrip.py::probe_params``: the unpacked
-    stage-0 window of K1 before its redesign) and K1's epilogue fields
-    (all 4 bytes wide; the loader compares sizeof)."""
-
-    _fields_ = [
-        ("n_stages", ctypes.c_int),
-        ("channels", ctypes.c_int),
-        ("tile_bytes", ctypes.c_int),
-        ("tile_frames", ctypes.c_int),
-        ("frame_bytes", ctypes.c_int),
-        ("n_valid", ctypes.c_int),
-        ("halo_bytes", ctypes.c_int),
-        ("block_out", ctypes.c_int),
-        ("byte_off", ctypes.c_int),
-        ("bit_off", ctypes.c_int),
-        ("n_load_bytes", ctypes.c_int),
-        ("n_taps_total", ctypes.c_int),
-        ("buf_a", ctypes.c_int),
-        ("buf_b", ctypes.c_int),
-        ("smem_bytes", ctypes.c_int),
-        ("n_taps", ctypes.c_int * MAX_STAGES),
-        ("decim", ctypes.c_int * MAX_STAGES),
-        ("tap_off", ctypes.c_int * MAX_STAGES),
-        ("out_len", ctypes.c_int * MAX_STAGES),
         *_EPILOGUE_FIELDS,
     ]
 
@@ -251,7 +222,7 @@ def load() -> ctypes.CDLL:
         lib.dsd2dxd_decim_params_size.restype = ctypes.c_int
         if lib.dsd2dxd_decim_params_size() != ctypes.sizeof(DecimParams):
             raise RuntimeError("DecimParams layout differs between "
-                               "kernels.py and csrc/fused_decim.cu")
+                               "kernels.py and csrc/decim_body.cuh")
         lib.dsd2dxd_fused_decim.argtypes = [
             ctypes.c_void_p,  # halo (C, H) u8
             ctypes.c_void_p,  # x (C, T) u8
@@ -309,19 +280,14 @@ def load() -> ctypes.CDLL:
             ctypes.c_int,     # device index
         ]
         lib.dsd2dxd_dma_probe.restype = ctypes.c_int
-        lib.dsd2dxd_probe_params_size.argtypes = []
-        lib.dsd2dxd_probe_params_size.restype = ctypes.c_int
-        if lib.dsd2dxd_probe_params_size() != ctypes.sizeof(ProbeParams):
-            raise RuntimeError("ProbeParams layout differs between "
-                               "kernels.py and csrc/probes.cu")
         lib.dsd2dxd_probe_step.argtypes = [
             ctypes.c_void_p,  # halo (C, H) u8
             ctypes.c_void_p,  # x (C, T) u8
-            ctypes.c_void_p,  # taps f32, all stages
+            ctypes.c_void_p,  # coefs f32 (fused.kernel_coefs)
             ctypes.c_void_p,  # out (C, T_out) f32 or i32
             ctypes.c_void_p,  # peak f32[1], zeroed
             ctypes.c_int,     # rung
-            ctypes.POINTER(ProbeParams),
+            ctypes.POINTER(DecimParams),
             ctypes.c_void_p,  # cudaStream_t
             ctypes.c_int,     # device index
         ]

@@ -175,9 +175,8 @@ def context_bits(chain: Sequence[Stage]) -> int:
 @dataclass(frozen=True)
 class BlockLayout:
     """Where one group of `block_out` consecutive output frames finds
-    its input, for the plain version (one group spanning the tile) and
-    for the P2 rungs (``tools/floorstrip.py``, one CUDA block per group
-    and channel; K1's own blocks are ``KernelLayout``).
+    its input, for the plain version (one group spanning the tile; K1's
+    own blocks are ``KernelLayout``).
 
     Frame m0 of the group reads window bytes from m0 * frame_bytes +
     byte_off on (window = halo ++ tile), its stage-0 samples starting at
@@ -539,6 +538,19 @@ def _kernel_params(chain, cfg: StepConfig, halo_bytes: int, tile_key: int,
     return p
 
 
+def check_coefs(coefs: torch.Tensor, params: kernels.DecimParams,
+                device: torch.device) -> None:
+    """Raise ValueError unless `coefs` are the launch's f32 coefficients
+    (``kernel_coefs``), contiguous and 16-byte aligned on `device`."""
+    if (coefs.dtype != torch.float32 or coefs.numel() != params.n_coefs
+            or not coefs.is_contiguous() or coefs.data_ptr() % 16
+            or coefs.device != device):
+        raise ValueError(f"want the chain's {params.n_coefs} f32 "
+                         f"coefficients (kernel_coefs), contiguous and "
+                         f"16-byte aligned on {device}, got "
+                         f"{coefs.dtype}{tuple(coefs.shape)}@{coefs.device}")
+
+
 def _launch_decim(x_u8: torch.Tensor, halo: torch.Tensor,
                   coefs: torch.Tensor, out: torch.Tensor,
                   peak: Optional[torch.Tensor], params: kernels.DecimParams,
@@ -549,13 +561,7 @@ def _launch_decim(x_u8: torch.Tensor, halo: torch.Tensor,
     `modes`. `device_index` overrides the index the C entry expects (a
     check of its refusal: any other index than x's raises)."""
     global KERNEL_LAUNCHES
-    if (coefs.dtype != torch.float32 or coefs.numel() != params.n_coefs
-            or not coefs.is_contiguous() or coefs.data_ptr() % 16
-            or coefs.device != x_u8.device):
-        raise ValueError(f"want the chain's {params.n_coefs} f32 "
-                         f"coefficients (kernel_coefs), contiguous and "
-                         f"16-byte aligned on {x_u8.device}, got "
-                         f"{coefs.dtype}{tuple(coefs.shape)}@{coefs.device}")
+    check_coefs(coefs, params, x_u8.device)
     lib = kernels.load()
     with kernels.launch_device(x_u8.device) as (stream, dev):
         rc = lib.dsd2dxd_fused_decim(

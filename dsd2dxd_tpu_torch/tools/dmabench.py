@@ -3,12 +3,15 @@
 Counterpart of the JAX package's ``tools/dmabench.py`` (its Pallas probe
 ``_probe`` and its main). The probe is K1's scaffold with no DSP: a grid
 of (block, row) CUDA blocks, each owning a window of u32 words of one row
-(a channel) and storing the last ``k_sub`` words it loaded as f32 of their
-int32 bits (``csrc/probes.cu``, ``dma_probe_kernel``). The modes keep the
-TPU tool's names:
+(a channel), copying it as K1 copies its own (``csrc/decim_body.cuh``,
+``copy_span``: 16-byte loads of the aligned span) and storing the last
+``k_sub`` words it loaded as f32 of their int32 bits (``csrc/probes.cu``,
+``dma_probe_kernel``). The modes keep the TPU tool's names:
 
   noop      no input read; store j to the streamed output
-  noflush   load the window; every block writes the same output block
+  noflush   load the window, and no output stream: only the last block of
+            each row stores its values (what the TPU's pinned output block
+            leaves)
   dma       load the window with its halo overlap, stream the output
   halo0     load the window without the overlap
   contig    windows relaid out beforehand (outside the timed region) into
@@ -22,9 +25,7 @@ TPU tool's names:
 block B, halo words H (the overlap), values stored per block ``k_sub`` and,
 for contig/bspec, the words each block loads from its slab (``row_words``,
 H + B by default: one channel's window; the JAX probe's ``lanes8`` in the
-parity tests). ``dma_probe_reference`` is the plain version; noflush's
-returns every block's values (the card's blocks run in no order, so each
-element of its output block is some block's; the TPU's is the last's).
+parity tests). ``dma_probe_reference`` is the plain version.
 
     python -m dsd2dxd_tpu_torch.tools.dmabench [--blocks 2048,2560,10240]
         [--tile-mib 16] [--reps 8] [--modes ...]
@@ -139,7 +140,7 @@ def dma_probe_reference(x: torch.Tensor, mode: str, g: Geometry, rows: int,
                         n_blocks: int) -> torch.Tensor:
     """Plain version of the probe. `x`: (rows, H + n*B) int32 words, or
     for contig/bspec the relaid (n, rows * (H + B)) slabs. Returns
-    (rows, n * k_sub) f32; noflush (rows, n, k_sub), every block's."""
+    (rows, n * k_sub) f32; noflush (rows, k_sub), the last block's."""
     _check(x, mode, g, rows, n_blocks)
     j = torch.arange(g.k_sub, device=x.device)
     i = torch.arange(n_blocks, device=x.device).unsqueeze(1)
@@ -153,7 +154,7 @@ def dma_probe_reference(x: torch.Tensor, mode: str, g: Geometry, rows: int,
         end = g.block_words if mode == "halo0" else g.win
         vals = x[:, (i * g.block_words + end - g.k_sub + j)]
     vals = vals.to(torch.float32)  # (rows, n, k_sub)
-    return vals if mode == "noflush" else vals.reshape(rows, -1)
+    return vals[:, -1] if mode == "noflush" else vals.reshape(rows, -1)
 
 
 def _params(mode: str, g: Geometry, rows: int, n_blocks: int,
@@ -167,16 +168,15 @@ def _params(mode: str, g: Geometry, rows: int, n_blocks: int,
     p.k_sub = g.k_sub
     p.row_words = g.load_words
     p.slab_words = rows * g.win
-    p.smem_bytes = 4 * load_words(mode, g)
+    # K1's copy starts up to 12 bytes early and takes whole 16-byte chunks
+    p.smem_bytes = 4 * load_words(mode, g) + (0 if mode == "bspec" else 32)
     return p
 
 
 def dma_probe_cuda(x: torch.Tensor, mode: str, g: Geometry, rows: int,
                    n_blocks: int) -> torch.Tensor:
     """Launch the probe on the current stream; same contract as
-    ``dma_probe_reference`` except noflush, whose (rows, k_sub) output
-    block holds, element by element, some block's value. Raises if the
-    launch fails."""
+    ``dma_probe_reference``. Raises if the launch fails."""
     _check(x, mode, g, rows, n_blocks)
     if mode == "bspec" and (g.load_words % 4 or g.win % 4
                             or x.data_ptr() % 16):

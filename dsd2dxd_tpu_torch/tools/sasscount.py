@@ -5,9 +5,10 @@ CUDA toolkit's ``cuobjdump -sass`` and prints, for every kernel whose
 name contains ``--match``, its instructions in all and by class: 32-bit
 integer multiplies (IMAD*), three-input logic (LOP3), integer adds
 (IADD3), f32 products and sums (FMUL, FADD, FFMA: the kernels must have no
-FFMA in their sums), shared-memory and global loads and stores; and the
-Philox rounds' own instructions: PHILOX_MUL, the multiplies by the two
-Philox constants, and XOR, the LOP3s that are two- or three-input xors.
+FFMA in their sums), shared-memory, global and local (stack) loads and
+stores; and the Philox rounds' own instructions: PHILOX_MUL, the
+multiplies by the two Philox constants, and XOR, the LOP3s that are two-
+or three-input xors.
 The counts are of the code, not of a run: a loop body counts once.
 
     python -m dsd2dxd_tpu_torch.tools.sasscount [--match finish_kernel]
@@ -35,7 +36,7 @@ from pathlib import Path
 from dsd2dxd_tpu_torch import kernels
 
 CLASSES = ("IMAD", "LOP3", "IADD3", "FMUL", "FADD", "FFMA", "LDS", "STS",
-           "LDG", "STG", "BAR", "PHILOX_MUL", "XOR")
+           "LDG", "STG", "LDL", "STL", "BAR", "PHILOX_MUL", "XOR")
 # 0xD2511F53 and 0xCD9E8D57 as cuobjdump prints them (negative immediates)
 _PHILOX_CONSTANTS = ("0x2daee0ad", "0x326172a9")
 _XOR_LUTS = (", 0x96,", ", 0x3c,")  # a ^ b ^ c and a ^ b

@@ -27,7 +27,7 @@ from dsd2dxd_tpu.ops import fused as jfused  # noqa: E402
 from dsd2dxd_tpu.ops.resample import StepConfig as JStepConfig  # noqa: E402
 from dsd2dxd_tpu_torch.formats.dsd_types import DitherType  # noqa: E402
 from dsd2dxd_tpu_torch.ops import fused  # noqa: E402
-from dsd2dxd_tpu_torch.ops.plan import state_from_jax  # noqa: E402
+from dsd2dxd_tpu_torch.ops.plan import state_from_jax, tree_sum  # noqa: E402
 from dsd2dxd_tpu_torch.ops.resample import StepConfig  # noqa: E402
 from dsd2dxd_tpu_torch.tools import dmabench, floorstrip, synth_chain  # noqa: E402
 from dsd2dxd_tpu_torch.utils.errors import ConfigError  # noqa: E402
@@ -69,17 +69,33 @@ def p1_jax():
                                   if m != "relayout"])
 def test_p1_mode_equals_jax_row0(p1_jax, mode):
     """The plain version with the JAX probe's geometry equals row 0 of
-    the JAX output exactly (noflush: the last block's, the one the TPU's
-    sequential grid leaves in the shared output block)."""
+    the JAX output exactly (noflush: the last block's values, what the
+    TPU's pinned output block leaves)."""
     xp, g, rows, n_blocks, _l8, outs = p1_jax
     x = torch.from_numpy(xp.view(np.int32))
     src = (dmabench.relayout(x, g, n_blocks) if mode in ("contig", "bspec")
            else x)
     got = dmabench.dma_probe(src, mode, g, rows, n_blocks)
-    if mode == "noflush":
-        assert got.shape == (rows, n_blocks, g.k_sub)
-        got = got[:, -1]
     np.testing.assert_array_equal(got.numpy()[0], outs[mode][0])
+
+
+@pytest.mark.parametrize("block,halo", dmabench.k1_blocks())
+def test_p1_noflush_is_the_last_blocks_values(block, halo):
+    """noflush has no output stream: at K1's blocks its (rows, k_sub)
+    block is the last block's values of each row, which dma streams as
+    its last block (the JAX probe's row 0 is held in
+    test_p1_mode_equals_jax_row0)."""
+    g = dmabench.geometry(block, halo)
+    n = 4
+    x = torch.from_numpy(np.random.default_rng(47).integers(
+        0, 2 ** 32, (2, g.halo_words + n * g.block_words),
+        dtype=np.uint32).view(np.int32))
+    got = dmabench.dma_probe(x, "noflush", g, 2, n)
+    assert got.shape == (2, g.k_sub)
+    dma = dmabench.dma_probe(x, "dma", g, 2, n)
+    assert torch.equal(got, dma[:, (n - 1) * g.k_sub:])
+    end = g.halo_words + n * g.block_words
+    assert torch.equal(got, x[:, end - g.k_sub:end].to(torch.float32))
 
 
 def test_p1_relayout_equals_jax(p1_jax):
@@ -104,7 +120,7 @@ def test_p1_contig_is_dma_at_the_cards_geometry():
     for mode in ("contig", "bspec"):
         assert torch.equal(dmabench.dma_probe(xr, mode, g, 2, n), dma)
     assert torch.equal(dmabench.dma_probe(x, "noflush", g, 2, n),
-                       dma.reshape(2, n, g.k_sub))
+                       dma.reshape(2, n, g.k_sub)[:, -1])
 
 
 @pytest.mark.parametrize("block,halo", [(512, 48), (2048, 496)])
@@ -238,70 +254,277 @@ def test_p2_quant_matches_jax(p2_inputs):
     assert abs(peak - rpeak) <= 1e-6
 
 
+def _chain(key):
+    from dsd2dxd_tpu_torch.filters.design import get_chain
+    from dsd2dxd_tpu_torch.formats.dsd_types import DsdRate, FilterType
+
+    if key == "synth":
+        return synth_chain(0.0)
+    return get_chain(*{"E64": (FilterType.EQUIRIPPLE, DsdRate.DSD64, 352800),
+                       "E256": (FilterType.EQUIRIPPLE, DsdRate.DSD256,
+                                88200)}[key])
+
+
+def _rung_inputs(key, block_out=None, seed=43, blocks=5 / 2):
+    """A tile of `blocks` kernel blocks (ragged last block) of random
+    bytes and a random halo for chain `key`: (chain, x, halo, block_out,
+    t_out)."""
+    chain = _chain(key)
+    fb = fused.decimation(chain) // 8
+    bo = block_out or fused.block_out_for(chain)
+    tile = int(bo * fb * blocks) // fb * fb
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(0, 256, (2, tile), dtype=np.uint8))
+    halo = torch.from_numpy(rng.integers(
+        0, 256, (2, fused.chain_halo_bytes(chain)), dtype=np.uint8))
+    return chain, x, halo, bo, tile // fb
+
+
 @pytest.mark.parametrize("key,block_out", [
     ("synth", None), ("synth", 100), ("E64", None), ("E256", None)])
 def test_p2_block_cascade_at_the_stages_strides_is_the_cascade(key,
                                                                 block_out):
-    """cas0a's plain version runs each block's window through the cascade
-    as the kernel does; at the stages' own strides it is the plain
-    cascade, bit for bit, so only the stride-1 reads differ in cas0a."""
-    from dsd2dxd_tpu_torch.filters.design import get_chain
-    from dsd2dxd_tpu_torch.formats.dsd_types import DsdRate, FilterType
-
-    chain = {"synth": synth_chain(0.0),
-             "E64": get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD64, 352800),
-             "E256": get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD256,
-                               88200)}[key]
-    fb = fused.decimation(chain) // 8
-    bo = block_out or fused.block_out_for(chain)
-    tile = bo * fb * 5 // 2 // fb * fb
-    rng = np.random.default_rng(43)
-    x = torch.from_numpy(rng.integers(0, 256, (2, tile), dtype=np.uint8))
-    halo = torch.from_numpy(rng.integers(
-        0, 256, (2, fused.chain_halo_bytes(chain)), dtype=np.uint8))
-    lay = fused.block_layout(chain, halo.shape[1], bo)
-    t_out = tile // fb
-    y = floorstrip.block_cascade(x, halo, _taps(chain), lay,
-                                 -(-t_out // bo), stride1=False)[:, :t_out]
+    """The rungs' plain versions run each block's window as K1 copies it
+    (big-endian words from the 16-byte chunk of its first byte), through
+    stage 0's tables and the ÷2 stages, block by block; read exactly
+    (no aligned words) that is the plain cascade, bit for bit, so only
+    the aligned reads differ in cas0a."""
+    chain, x, halo, bo, t_out = _rung_inputs(key, block_out)
+    lay = fused.kernel_layout(chain, halo.shape[1], bo)
+    y = floorstrip.block_body(x, halo, _taps(chain), lay,
+                              -(-t_out // bo))[:, :t_out]
     assert torch.equal(y, fused.fused_decim_cascade(x, halo, _taps(chain),
                                                     chain, 1.0))
 
 
 def test_p2_rungs_on_the_cpu():
-    """Each rung's plain version: dma the block's first bytes, unpack the
-    ±1 sums of every block_out-th sample, cas0a a wrong cascade of the
-    real shape, quant the TPDF epilogue's int32 words."""
+    """Each rung's plain version on a ragged tile of synth_chain(0.0) at
+    K1's block: dma the block's first window bytes, unpack stage 0's
+    output j of each block, cas0a a wrong cascade of the real shape, cas0
+    the cascade and its peak, quant the 24-bit epilogue's int32 words at
+    NONE and at TPDF with cas0's peak; no launch counted."""
     chain, cfg, bo = floorstrip.probe_config(0, None)
-    tile = 3 * cfg.tile_bytes
+    tile = cfg.tile_bytes * 7 // 2 // 8 * 8
     cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=24,
                      dither=DitherType.TPDF, level_db=0.0)
     rng = np.random.default_rng(44)
     x = torch.from_numpy(rng.integers(0, 256, (2, tile), dtype=np.uint8))
     halo = fused.init_fused_halo(chain, 2)
-    lay = fused.block_layout(chain, halo.shape[1], bo)
+    lay = fused.kernel_layout(chain, halo.shape[1], bo)
+    before = dict(floorstrip.LAUNCHES)
     outs = {r: floorstrip.make_probe_step(chain, cfg, r, "cpu")(x, halo, 9)
             for r in floorstrip.KERNEL_RUNGS}
+    none_cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=24,
+                          dither=DitherType.NONE, level_db=0.0)
+    qn, qnpk = floorstrip.make_probe_step(chain, none_cfg, "quant",
+                                          "cpu")(x, halo, 9)
+    assert floorstrip.LAUNCHES == before
     t_out = tile // 8
     window = torch.cat([halo, x], dim=1)
     first = window[:, lay.byte_off:lay.byte_off + bo].to(torch.float32)
     assert torch.equal(outs["dma"][0][:, :bo], first)
-    assert outs["dma"][1] is None and outs["unpack"][1] is None
-    bits = fused.unpack_bits(window[:, lay.byte_off:lay.byte_off + 8 * bo])
-    sums = bits.reshape(2, 64, bo).sum(dim=1)  # samples j, j + bo, ...
-    assert torch.equal(outs["unpack"][0][:, :bo], sums)
+    for r in ("dma", "unpack", "cas0a"):
+        assert outs[r][1] is None
+        assert outs[r][0].shape == (2, t_out)
     y, pk = outs["cas0"]
-    assert y.shape == outs["cas0a"][0].shape == (2, t_out)
+    assert torch.equal(y, fused.fused_decim_cascade(x, halo, _taps(chain),
+                                                    chain, 1.0))
+    u = outs["unpack"][0]
+    assert torch.isfinite(u).all() and float(u.abs().max()) <= 1.0 + 1e-6
     assert not torch.equal(y, outs["cas0a"][0])
+    assert torch.isfinite(outs["cas0a"][0]).all()
     assert float(pk) == float(y.abs().max())
     q, qpk = outs["quant"]
-    assert q.dtype == torch.int32 and float(qpk) == float(pk)
+    assert q.dtype == qn.dtype == torch.int32
+    assert float(qpk) == float(qnpk) == float(pk)
+    assert torch.equal(qn, torch.round(y.double() * 2 ** 23).to(torch.int32))
     e = q.double() - y.double() * 2 ** 23
     assert e.abs().max() <= 1.5 and 0.3 < float(e.pow(2).mean().sqrt()) < 0.7
-    before = dict(floorstrip.LAUNCHES)
-    floorstrip.make_probe_step(chain, cfg, "cas0", "cpu")(x, halo, 9)
-    assert floorstrip.LAUNCHES == before
     with pytest.raises(ValueError):
         floorstrip.make_probe_step(chain, cfg, "fan", "cpu")
+    rect = StepConfig(channels=2, tile_bytes=tile, bit_depth=24,
+                      dither=DitherType.RECTANGULAR, level_db=0.0)
+    with pytest.raises(ConfigError):
+        floorstrip.make_probe_step(chain, rect, "quant", "cpu")
+
+
+def _tile_stage0(x, halo, taps, chain):
+    """Stage 0 of the plain cascade over the whole tile (the same window
+    and products as fused_decim_cascade, stopped after its first stage):
+    (C, out_len[0]) f32, output i reading bits M0 i .. M0 i + N0 - 1."""
+    t_out = x.shape[1] * 8 // fused.decimation(chain)
+    lay = fused.block_layout(chain, halo.shape[1], t_out)
+    window = torch.cat([halo, x], dim=1)[:, lay.byte_off:]
+    v = fused.unpack_bits(window)[:, lay.bit_off:]
+    n, m, o = lay.n_taps[0], lay.decim[0], lay.out_len[0]
+    hk = taps[0].tolist()
+    return tree_sum(v[:, n - 1 - k:n - 1 - k + (o - 1) * m + 1:m] * hk[k]
+                    for k in range(n))
+
+
+def _np_words(x, halo, lay, blk):
+    """The window words of block `blk` as K1's copy leaves them, in
+    numpy (a 16-byte aligned tile): (words (C, n) uint64, base (C,))."""
+    xa, ha = x.numpy(), halo.numpy()
+    c, t = xa.shape
+    h = ha.shape[1]
+    n_win = 4 * lay.win_words
+    wb0 = blk * lay.block_out * lay.frame_bytes + lay.byte_off
+    flat = np.concatenate([xa.reshape(-1),
+                           np.full(n_win, fused.IDLE_BYTE, np.uint8)])
+    words, base = [], []
+    for ch in range(c):
+        if wb0 >= h and wb0 + lay.n_load_bytes <= h + t:
+            off = ch * t + wb0 - h
+            s = off % 16
+            raw = flat[off - s:off - s + n_win]
+        else:
+            s = 0
+            win = np.concatenate([ha[ch], xa[ch],
+                                  np.full(n_win, fused.IDLE_BYTE, np.uint8)])
+            raw = win[wb0:wb0 + n_win]
+        words.append(raw.reshape(-1, 4).astype(np.uint64)
+                     @ np.array([1 << 24, 1 << 16, 1 << 8, 1], np.uint64))
+        base.append(8 * s + lay.bit_off)
+    return np.stack(words), np.array(base)
+
+
+def _np_tree(vals):
+    """plan.tree_sum's association over a list of f32 arrays."""
+    vals = list(vals)
+    while len(vals) > 1:
+        nxt = [(vals[i] + vals[i + 1]).astype(np.float32)
+               for i in range(0, len(vals) - 1, 2)]
+        if len(vals) % 2:
+            nxt.append(vals[-1])
+        vals = nxt
+    return vals[0]
+
+
+def _np_cas0a(x, halo, taps, chain, bo, t_out):
+    """cas0a in numpy: per block, every stage-0 read of 32 window bits
+    rounded down to the word that holds its first bit (as the kernel's
+    path for the chain reads: two chunks per four outputs at ÷2 with an
+    unrolled group count, one per 8 groups with another, one per group
+    else), tables of 4-tap subtree sums, then the ÷2 stages (rounded to
+    float4 only at tap counts the kernel loops over)."""
+    lay = fused.kernel_layout(chain, halo.shape[1], bo)
+    tables = fused.stage0_tables(taps[0]).numpy()
+    q, m0 = lay.n_groups, lay.decim[0]
+    hs = [t.numpy() for t in taps]
+    out = np.zeros((x.shape[0], -(-t_out // bo) * bo), np.float32)
+    for blk in range(-(-t_out // bo)):
+        words, base = _np_words(x, halo, lay, blk)
+        j = np.arange(lay.n_out[0])
+        if q in floorstrip.STAGE0_CASES and q <= 6 and m0 == 2:
+            pos = base[:, None] + 8 * (j // 4) + 2 * (j % 2)
+            w = np.take_along_axis(words, pos >> 5, axis=1)
+            nibs = [(w >> np.uint64(4 * (7 - (q - 1 - g + (j // 2) % 2))))
+                    & np.uint64(15) for g in range(q)]
+        else:
+            pos = base[:, None] + m0 * j
+            nibs = []
+            for g in range(q):
+                r = q - 1 - g
+                if q in floorstrip.STAGE0_CASES:
+                    p, sel = pos + 32 * (r >> 3), r & 7
+                else:
+                    p, sel = pos + 4 * r, 0
+                w = np.take_along_axis(words, p >> 5, axis=1)
+                nibs.append((w >> np.uint64(4 * (7 - sel))) & np.uint64(15))
+        v = _np_tree(tables[g][nibs[g].astype(np.int64)] for g in range(q))
+        for s in range(1, len(chain)):
+            n, o = lay.n_taps[s], lay.n_out[s]
+            jj = np.arange(o)
+            prods = []
+            for k in range(n):
+                d = n - 1 - k
+                e = jj + d // 2
+                if n not in floorstrip.FIR2_CASES:
+                    e = e & ~3
+                prods.append((v[:, 2 * e + d % 2] * hs[s][k])
+                             .astype(np.float32))
+            v = _np_tree(prods)
+        out[:, blk * bo:(blk + 1) * bo] = v[:, :bo]
+    return out[:, :t_out]
+
+
+def _np_philox(ctr0, ctr1, key):
+    """Philox4x32-10 words 0 and 1 of counter (ctr0, ctr1, 0, 0) in
+    numpy uint64 (each 32x32 product whole)."""
+    m32 = np.uint64(0xFFFFFFFF)
+    c = [ctr0.astype(np.uint64), ctr1.astype(np.uint64),
+         np.zeros_like(ctr0, np.uint64), np.zeros_like(ctr0, np.uint64)]
+    k0, k1 = key & 0xFFFFFFFF, key >> 32
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + 0x9E3779B9) & 0xFFFFFFFF, (k1 + 0xBB67AE85) \
+                & 0xFFFFFFFF
+        p0 = c[0] * np.uint64(0xD2511F53)
+        p1 = c[2] * np.uint64(0xCD9E8D57)
+        c = [(p1 >> np.uint64(32)) ^ c[1] ^ np.uint64(k0), p1 & m32,
+             (p0 >> np.uint64(32)) ^ c[3] ^ np.uint64(k1), p0 & m32]
+    return c[0], c[1]
+
+
+@pytest.mark.parametrize("key", ["synth", "E64"])
+@pytest.mark.parametrize("rung", ["unpack", "cas0a", "quant NONE",
+                                  "quant TPDF"])
+def test_p2_rung_plain_equals_an_independent_computation(rung, key):
+    """Each rung whose plain version is its own: unpack equals stage 0 of
+    the whole tile's cascade at each block's outputs (frame m0 + j: output
+    m0 R / M0 + j); cas0a equals the rounded-down reads computed in
+    numpy; quant equals rint(y 2^23 (+ TPDF noise of a numpy Philox)),
+    clipped, on the cascade's y. Bit for bit, on a ragged tile."""
+    chain, x, halo, bo, t_out = _rung_inputs(key, seed=46)
+    taps = _taps(chain)
+    name, _sp, dither = rung.partition(" ")
+    cfg = StepConfig(channels=2, tile_bytes=x.shape[1], bit_depth=24,
+                     dither=DitherType[dither or "NONE"], level_db=0.0)
+    key_t = 0x0123456789ABCDEF
+    got, _pk = floorstrip.make_probe_step(chain, cfg, name, "cpu")(
+        x, halo, key_t)
+    if name == "unpack":
+        r_m0 = fused.decimation(chain) // chain[0].M
+        m = np.arange(t_out)
+        idx = torch.from_numpy((m // bo) * bo * r_m0 + m % bo)
+        ref = _tile_stage0(x, halo, taps, chain)[:, idx]
+        assert torch.equal(got, ref)
+    elif name == "cas0a":
+        np.testing.assert_array_equal(got.numpy(),
+                                      _np_cas0a(x, halo, taps, chain, bo,
+                                                t_out))
+        assert not torch.equal(got, fused.fused_decim_cascade(
+            x, halo, taps, chain, 1.0))
+    else:
+        y = fused.fused_decim_cascade(x, halo, taps, chain, 1.0).numpy()
+        v = (y * np.float32(2 ** 23)).astype(np.float32)
+        if dither == "TPDF":
+            f = np.broadcast_to(np.arange(t_out), y.shape)
+            ch = np.broadcast_to(np.arange(2)[:, None], y.shape)
+            w0, w1 = _np_philox(f, ch, key_t)
+            u0 = (w0 >> np.uint64(8)).astype(np.float32) * np.float32(2 ** -24)
+            u1 = (w1 >> np.uint64(8)).astype(np.float32) * np.float32(2 ** -24)
+            v = (v + ((u0 + u1).astype(np.float32) - np.float32(1))
+                 .astype(np.float32)).astype(np.float32)
+        ref = np.clip(np.rint(v), -2 ** 23, 2 ** 23 - 1).astype(np.int32)
+        np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("switch,want", [
+    ("n_groups", floorstrip.STAGE0_CASES),
+    ("n_taps[s]", floorstrip.FIR2_CASES)])
+def test_p2_unrolled_counts_are_the_bodys(switch, want):
+    """cas0a's plain version follows the kernel's paths, so its lists of
+    unrolled counts are those of decim_body.cuh's two switches."""
+    import re
+
+    src = (ROOT / "dsd2dxd_tpu_torch" / "csrc" / "decim_body.cuh").read_text()
+    body = src[src.index(f"switch (p.{switch})"):]
+    body = body[:body.index("default:")]
+    found = re.findall(r"case (\d+)|FIR2_CASE\((\d+)\)", body)
+    got = tuple(int(a or b) for a, b in found)
+    assert got == want
 
 
 # -- the entry points ------------------------------------------------------------
@@ -362,6 +585,67 @@ def test_finishsweep_needs_a_card(monkeypatch):
         assert 2 * p.run_frames * channels * 4 <= 40 * 1024
     with pytest.raises(ConfigError):
         fused.finish_params(1000, 321, 1.0, 7, cfg, False, None)
+
+
+class _FakeClock:
+    """perf_counter that moves only when a timed fn enqueues."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+class _FakeEvent:
+    def __init__(self, enable_timing=False):
+        pass
+
+    def record(self):
+        pass
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 1.0
+
+
+@pytest.mark.parametrize("slow,want_sleeps", [
+    ((), [4_000_000, 4_000_000]),
+    ((3,), [4_000_000, 4_000_000, 8_000_000]),
+    ((2, 3), [4_000_000, 8_000_000, 8_000_000]),
+])
+def test_round_robin_reruns_a_starved_rep(monkeypatch, slow, want_sleeps):
+    """The hold: a warm enqueue of 1 ms sleeps 4e6 cycles (2 ms at 2
+    GHz). A rep whose enqueue outlasts its sleep is run again with the
+    sleep doubled and only the held run's time is kept; the doubled sleep
+    stays for later reps, and a rep starved past HOLD_TRIES raises."""
+    import dsd2dxd_tpu_torch.tools as tools
+
+    clock = _FakeClock()
+    calls = []
+    # run 0 is the warm-up, run 1 the enqueue measure, runs 2.. the reps
+    enqueue_s = {c: 3e-3 if c in slow else 1e-3 for c in range(10)}
+
+    def fn():
+        calls.append(len(calls))
+        clock.t += enqueue_s.get(len(calls) - 1, 1e-3)
+
+    sleeps = []
+    monkeypatch.setattr(tools.time, "perf_counter", clock)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", sleeps.append)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    times = tools.round_robin({"a": fn}, reps=2)
+    assert times == {"a": [1.0, 1.0]}
+    assert sleeps == want_sleeps
+    assert len(calls) == 2 + len(sleeps)
+
+    enqueue_s.update({c: 1.0 for c in range(2, 10)})
+    calls.clear()
+    with pytest.raises(RuntimeError, match="outlasted"):
+        tools.round_robin({"a": fn}, reps=1)
 
 
 def test_sasscount_counts_by_kernel():
