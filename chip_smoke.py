@@ -118,6 +118,19 @@ one line per chain); any failed check exits non-zero:
     TPDF over cuda:0 x 4 (÷8 and 96k) against the same function's plain
     bodies on the CPU: within 1 LSB, >= 99.9 % identical, peak within
     1e-4.
+12c. host-tools: the port's host tools (dsd2dxd_tpu_torch/tools) through
+    their entry points, about 30 s: hostbudget --seconds 2 --pairs 3 (every
+    stage, stage_pinned too; configs 1, 2 and 4's reader and drain thread
+    ceilings beside this run's e2e audio-s/s of the same config, configs 3
+    and 5's drain ceilings); flacbench --seconds 2 --reps 2 (tone, music,
+    quiet); njadbench --seconds 2 --pairs 3 (its div/ladder gate raises on
+    any difference); compare_reference on the card's outputs: config 1's
+    WAV (converted again, its sha256 phase 5's) against itself bitexact at
+    offset 0, config 1 under DSD2DXD_SEED "" and "take2" dither-equiv with
+    an RMS of 0.3-0.8 LSB (one K1a launch per tile each), a 5 s DSD64 .dsf
+    at `-b 24 -d N` on the card against Converter(device="cpu") (the plain
+    versions) within 5 LSB at offset 0 (main's exit code 0), and phase
+    12's 5 s FLAC against its WAV bitexact (the port's decoder).
 13. probes: the floor probes of K1 (dsd2dxd_tpu_torch/tools). Every P1
     mode (dmabench: noop, noflush, dma, halo0, contig, bspec; all but
     bspec copy their window with K1's 16-byte copy) at each of K1's
@@ -188,6 +201,7 @@ import sys
 import tempfile
 import time
 import wave
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -448,6 +462,172 @@ def ptxas_entries(log: str) -> list:
             out.append((name, int(m.group(1)), int(spill), int(stack)))
             name = None
     return out
+
+
+def host_tools(tmp: Path, src64: Path, n1: int, out_dir: Path,
+               config1_sha: str, e2e: dict, label: str) -> None:
+    """Phase 12c: hostbudget, flacbench, njadbench and compare_reference
+    (dsd2dxd_tpu_torch/tools) through their entry points. `src64` is
+    config 1's .dsf (`n1` engine tiles), `config1_sha` its streaming WAV's
+    sha256, `out_dir` holds the FLAC decode phase's 5 s FLAC and WAV,
+    `e2e` the audio-s/s of configs 1, 2 and 4 measured in this run."""
+    from dsd2dxd_tpu_torch import (
+        Converter,
+        DitherType,
+        FilterType,
+        OutputType,
+    )
+    from dsd2dxd_tpu_torch.cli.dsd2dxd import run as cli_run
+    from dsd2dxd_tpu_torch.ops import fused
+    from dsd2dxd_tpu_torch.tools import (
+        compare_reference,
+        flacbench,
+        hostbudget,
+        njadbench,
+    )
+
+    t_phase = time.perf_counter()
+    # hostbudget: every stage, stage_pinned too, and configs 1, 2 and 4's
+    # thread ceilings beside this run's e2e audio-s/s
+    hb_json = tmp / "hostbudget.json"
+    rc = hostbudget.main(["--seconds", "2", "--pairs", "3", "--json",
+                          str(hb_json)])
+    hb = json.loads(hb_json.read_text())
+    check(rc == 0 and set(hb["stages"]) == set(hostbudget.SHARED_STAGES),
+          f"hostbudget exited {rc}, stages {sorted(hb['stages'])}")
+    hb_text = [", ".join(f"{n} {r['xrt']:.1f}x" + (
+        f" (threads1/threads2 {r['t1_over_t2']:.3f})" if "t1_over_t2" in r
+        else "") for n, r in hb["stages"].items())]
+    for name, audio_per_s in e2e.items():
+        c = hb["configs"][name]
+        want = set(hostbudget.TILE_CONFIGS[name].reader) | {"write"}
+        check(set(c["stages"]) == want,
+              f"hostbudget {name}: stages {sorted(c['stages'])}, not "
+              f"{sorted(want)}")
+        hb_text.append(
+            f"{name} ({c['tile_bytes']} B/ch tile, {c['audio_s']:.3f} "
+            f"audio-s): " + ", ".join(f"{s} {x:.1f}x"
+                                      for s, x in c["stages"].items())
+            + f"; reader ceiling {c['reader']:.1f}x, drain ceiling "
+            f"{c['drain']:.1f}x; e2e {audio_per_s:.1f} audio-s/s (reader "
+            f"ceiling / e2e = {c['reader'] / audio_per_s:.2f})")
+    for name in hostbudget.SINK_CONFIGS:
+        c = hb["configs"][name]
+        hb_text.append(f"{name} drain ceiling ({' + '.join(c['sink'])}) "
+                       f"{c['drain']:.1f}x")
+    phase("host-tools", f"hostbudget --seconds 2 --pairs 3 ({hb['cores']} "
+          f"cores, page cache warm): " + "; ".join(hb_text)
+          + f"; card [{label}]")
+
+    # flacbench and njadbench: the host library's FLAC encoder and the
+    # NJAD digit A/B, whose gate raises before any time is printed
+    bench_text = []
+    for tool, argv in ((flacbench, ["--seconds", "2", "--reps", "2"]),
+                       (njadbench, ["--seconds", "2", "--pairs", "3"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = tool.main(argv)
+        lines = [ln.strip() for ln in buf.getvalue().splitlines()]
+        check(rc == 0 and len(lines) == 3,
+              f"{tool.__name__} exited {rc}: {lines}")
+        bench_text.append(f"{tool.__name__.rsplit('.', 1)[1]} "
+                          f"{' '.join(argv)}: " + "; ".join(lines))
+    phase("host-tools", " | ".join(bench_text))
+
+    # compare_reference on the card's outputs
+    cmp_dir = tmp / "cmp"
+    wavs = {}
+    t_conv = time.perf_counter()
+    saved = os.environ.get("DSD2DXD_SEED")
+    try:
+        for seed in ("", "take2"):
+            d = cmp_dir / (seed or "unset")
+            d.mkdir(parents=True)
+            os.environ["DSD2DXD_SEED"] = seed
+            fused.reset_launch_counts()
+            rc = cli_run(["-o", "w", "-q", "-p", str(d), str(src64)])
+            k1a = fused.MODE_LAUNCHES["K1a"]
+            check(rc == 0 and k1a == n1, f"compare: config 1 with "
+                  f"DSD2DXD_SEED={seed!r}: CLI exited {rc}, {k1a} K1a "
+                  f"launches for {n1} tiles")
+            wavs[seed] = d / src64.with_suffix(".wav").name
+    finally:
+        if saved is None:
+            os.environ.pop("DSD2DXD_SEED", None)
+        else:
+            os.environ["DSD2DXD_SEED"] = saved
+    conv_s = time.perf_counter() - t_conv
+    # the sha256 and the two comparisons of 381 MB WAVs run on threads
+    # (hashlib and numpy's array passes release the interpreter lock)
+    # while this thread runs the parity conversions and the FLAC decode
+    t_cmp = time.perf_counter()
+    pair_of = functools.partial(compare_reference.compare_pair, raw=None,
+                                channels=2, bits_override=None, max_shift=16)
+    results = {}
+    pool = ThreadPoolExecutor(max_workers=3)
+    try:
+        f_sha = pool.submit(sha256, wavs[""])
+        f_self = pool.submit(pair_of, wavs[""], wavs[""])
+        f_seed = pool.submit(pair_of, wavs[""], wavs["take2"])
+
+        # the parity contract: 5 s at `-b 24 -d N`, the card's kernels
+        # against their plain versions (Converter on the CPU), max 5 LSB
+        src5 = cmp_dir / "tone_dsd64_5s.dsf"
+        write_dsf(src5, tone_planes(DSD64_HZ, 5), DSD64_HZ)
+        card_dir, cpu_dir = cmp_dir / "card", cmp_dir / "cpu"
+        card_dir.mkdir()
+        fused.reset_launch_counts()
+        rc = cli_run(["-b", "24", "-d", "N", "-o", "w", "-q", "-p",
+                      str(card_dir), str(src5)])
+        k1d = fused.MODE_LAUNCHES["K1d"]
+        check(rc == 0 and k1d == fused.KERNEL_LAUNCHES == 1,
+              f"compare: `-b 24 -d N` on the card exited {rc}, {k1d} K1d "
+              f"of {fused.KERNEL_LAUNCHES} launches")
+        Converter.from_container(
+            bit_depth=24, output=OutputType.WAV, level_db=0.0,
+            output_rate=352800, out_dir=cpu_dir, dither=DitherType.NJAD,
+            filt=FilterType.EQUIRIPPLE, append_rate=False,
+            base_dir=cmp_dir, input_path=src5, device="cpu").do_conversion()
+        pair = [str(card_dir / "tone_dsd64_5s.wav"),
+                str(cpu_dir / "tone_dsd64_5s.wav")]
+        parity = pair_of(*map(Path, pair))
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = compare_reference.main([*pair, "--max-shift", "16"])
+        check(rc == 0 and parity["offset"] == 0
+              and parity["max_lsb"] <= TOL_NONE_LSB,
+              f"compare: `-b 24 -d N` on the card against the plain "
+              f"versions: main exited {rc}, {parity}")
+
+        # the FLAC decode phase's 5 s FLAC against its WAV, through the
+        # port's decoder
+        flac = pair_of(out_dir / "tone_dsd128_5s.wav",
+                       out_dir / "tone_dsd128_5s.flac")
+        check(flac["verdict"] == "bitexact",
+              f"compare: 5 s FLAC vs its WAV: {flac}")
+
+        check(f_sha.result() == config1_sha,
+              "compare: config 1 again is not the e2e phase's WAV")
+        r = results["config 1 vs itself"] = f_self.result()
+        check(r["verdict"] == "bitexact" and r["offset"] == 0,
+              f"compare: config 1's WAV against itself: {r}")
+        r = results["DSD2DXD_SEED '' vs 'take2'"] = f_seed.result()
+        check(r["verdict"] == "dither-equiv" and r["offset"] == 0
+              and 0.3 <= r["rms_lsb"] <= 0.8,
+              f"compare: config 1 under two seeds: {r}")
+    finally:
+        pool.shutdown(wait=True)
+    results["-b 24 -d N card vs plain"] = parity
+    results["5 s FLAC vs WAV"] = flac
+    for path in wavs.values():
+        path.unlink()
+    phase("host-tools", "compare_reference: " + "; ".join(
+        f"{k} {r['verdict']} (offset {r['offset']}, {r['frames']} frames, "
+        f"max {r['max_lsb']:g} LSB, rms {r['rms_lsb']:.3f} LSB at "
+        f"{r['bits']} bit)" for k, r in results.items())
+        + f"; config 1 converted twice in {conv_s:.1f} s, the comparisons "
+        f"(the 5 s conversions and the FLAC decode among them) "
+        f"{time.perf_counter() - t_cmp:.1f} s. Phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s; card [{label}]")
 
 
 def main() -> int:
@@ -1023,6 +1203,7 @@ def main() -> int:
               f"{SECONDS / wall:.1f} audio-s/s; {n_tiles} tiles of "
               f"{tile_bytes} B/ch, {launches['K1b']} K1b launches; FFT peak "
               f"{peak_hz.tolist()} Hz; card [{label}]")
+        stream_wall["config 2"] = wall  # beside the host-tools ceilings
         raw_in.unlink()
         raw_out.unlink()
         del planes64
@@ -1504,7 +1685,7 @@ def main() -> int:
         finally:
             engine.stream_devices = real_stream_devices
             del os.environ["DSD2DXD_SHARD_STREAM"]
-        for path in (src64, src128, src256):
+        for path in (src128, src256):
             path.unlink()
 
         # round-robin: config 5's batch over every card
@@ -1594,6 +1775,13 @@ def main() -> int:
               f"{time.perf_counter() - t_phase:.1f} s; card [{label}]")
         engine.Converter.check_level = check_level
         engine.Converter.do_conversion = do_conversion
+
+        # 12c. host-tools: the port's host tools through their entry points
+        host_tools(tmp, src64, n1, out_dir, stream_sha["config 1"], {
+            "config 1": SECONDS / stream_wall["config 1"],
+            "config 2": SECONDS / stream_wall["config 2"],
+            "config 4": SECONDS_CONFIG4 / stream_wall["config 4"]}, label)
+        src64.unlink()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -10,6 +10,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "dsd2dxd_tpu_torch"
 
@@ -36,7 +38,11 @@ names = [m.name for m in pkgutil.walk_packages(dsd2dxd_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 assert {"dsd2dxd_tpu_torch.parallel.sharded", "dsd2dxd_tpu_torch.ops.dsm",
-        "dsd2dxd_tpu_torch.tools.shardcheck"} <= set(names)
+        "dsd2dxd_tpu_torch.tools.shardcheck",
+        "dsd2dxd_tpu_torch.tools.compare_reference",
+        "dsd2dxd_tpu_torch.tools.flacbench",
+        "dsd2dxd_tpu_torch.tools.njadbench",
+        "dsd2dxd_tpu_torch.tools.hostbudget"} <= set(names)
 from dsd2dxd_tpu_torch import DitherType, DsdRate, FilterType
 from dsd2dxd_tpu_torch.cli.dsd2dxd import run
 from dsd2dxd_tpu_torch.formats.dsf import write_dsf
@@ -76,6 +82,25 @@ assert not loaded, loaded
 print(len(names))
 """
 
+# `python -m TOOL --help` with the same refusing finder in place
+_HELP = r"""
+import runpy, sys
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "dsd2dxd_tpu"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+sys.argv = [sys.argv[1], "--help"]
+runpy.run_module(sys.argv[0], run_name="__main__")
+"""
+
+HOST_TOOLS = ("compare_reference", "flacbench", "njadbench", "hostbudget")
+
 _JAX_PACKAGE_IMPORT = re.compile(
     r"^\s*(import\s+dsd2dxd_tpu\b(?!_)|from\s+dsd2dxd_tpu(\.|\s+import\b))",
     re.M)
@@ -94,6 +119,19 @@ def test_port_path_never_loads_jax():
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 44  # every module was imported
+
+
+@pytest.mark.parametrize("tool", HOST_TOOLS)
+def test_host_tool_help_without_jax(tool):
+    """The host tools' entry points start with jax and the JAX package
+    refused."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    name = f"dsd2dxd_tpu_torch.tools.{tool}"
+    res = subprocess.run([sys.executable, "-c", _HELP, name], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith(f"usage: {tool}"), res.stdout
 
 
 def test_no_jax_import_in_sources():
