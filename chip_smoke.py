@@ -38,9 +38,11 @@ one line per chain); any failed check exits non-zero:
    0.01 LSB and other noise in every tile; peak within 1e-4; f32 NONE
    bit-equal; FPD within 1 ulp of y, error mean below 0.01 ulp, other
    noise in every tile.
-   Then a partial final tile: a burst that ends at n_valid, the idle pad
-   after it; the kernel's peak is the plain cascade's max over the first
-   n_valid frames.
+   Then ÷8 (E DSD64 -> 352.8k) and ÷64 (E DSD128 -> 88.2k) at 1, 3 and 6
+   channels (K1 takes the channel from the grid's y), 24-bit NONE and
+   TPDF and f32 FPD, with the same limits. Then a partial final tile: a
+   burst that ends at n_valid, the idle pad after it; the kernel's peak
+   is the plain cascade's max over the first n_valid frames.
 4. the 48k family, all 9 chains (E DSD64/128/256 -> 96k/192k/384k), two
    channels, three streamed tiles at the engine's tile:
    - K1e vs plain: the planar f32 head against fused_decim_cascade at
@@ -59,12 +61,17 @@ one line per chain); any failed check exits non-zero:
    - the whole step (K1e, K2t through make_rational_step) against its
      plain path: all 9 at 24-bit TPDF, 3 at f32 FPD, wire bytes and peak
      equal;
+   - K1e at 1, 3 and 6 channels on DSD64 -> 192k's head, bit-equal;
    - a partial final tile on DSD64 -> 192k: the step's wire bytes are the
      plain path's and its peak is the plain valid-prefix peak.
 5. e2e, BASELINE config 1: a three-minute DSD64 stereo 1 kHz tone .dsf
    through the port's CLI to a 24-bit 352.8 kHz TPDF WAV; checks the WAV
    header, the frame count, the 1 kHz spectral peak and that the kernel
    (K1a) ran once per tile.
+5b. e2e, mono: a one-minute DSD64 mono .dsf through config 1's flags:
+   the header (one channel), the frame count, the 1 kHz peak, one K1a
+   launch per tile; then 5 s at `-d N` in mono and in stereo (the same
+   tone on both channels): the mono samples are both stereo channels'.
 6. e2e, integer 48k: the same .dsf to a 24-bit 96 kHz TPDF WAV (÷32 head,
    3008-tap tail); the same checks, one K1e and one K2t launch per tile
    and no K2 "from z" launch.
@@ -131,6 +138,26 @@ one line per chain); any failed check exits non-zero:
     at `-b 24 -d N` on the card against Converter(device="cpu") (the plain
     versions) within 5 LSB at offset 0 (main's exit code 0), and phase
     12's 5 s FLAC against its WAV bitexact (the port's decoder).
+12d. profile: DSD2DXD_PROFILE_DIR (the engine's torch.profiler hook,
+    dsd2dxd_tpu_torch/utils/trace.py) through the CLI, about 25 s: config
+    1, config 2 and config 4, each 3 runs untraced and 3 traced in turn.
+    Per config: the median and range of audio-s/s of both kinds and their
+    ratio (the hook's cost); from each trace the device's busy share of
+    the stream's wall (dsd2dxd.stream's length): the union of the kernel
+    events' intervals, then of kernels, copies and sets; each host span's
+    summed ms (setup, read, stage and its wait_slot / fill / enqueue,
+    wait_drain, finish; the drain thread's drain.wait_copy and
+    drain.write) and the share of the stream's thread that no span
+    covers. Checks: one trace file per traced stream and none untraced;
+    every traced output's sha256 the untraced one's; one K1 (config 4:
+    one K1e and one K2t) kernel event per tile under the kernel's name;
+    drain.write on another thread than read. Then two streams at once
+    (config 1's .dsf and a link to it in one CLI call, on its worker
+    threads), untraced and traced: exit 0, one or two traces that parse,
+    every output's sha256 the untraced call's. Then one traced sharded
+    run of config 1 (DSD2DXD_SHARD_STREAM=1 over cuda:0 x 4), the same
+    split and checks. Fails, saying so, where torch's profiler cannot
+    record every thread (profile_all_threads).
 13. probes: the floor probes of K1 (dsd2dxd_tpu_torch/tools). Every P1
     mode (dmabench: noop, noflush, dma, halo0, contig, bspec; all but
     bspec copy their window with K1's 16-byte copy) at each of K1's
@@ -630,6 +657,253 @@ def host_tools(tmp: Path, src64: Path, n1: int, out_dir: Path,
         f"{time.perf_counter() - t_phase:.1f} s; card [{label}]")
 
 
+CONFIG2_ARGV = ["-f", "I", "-r", "176400", "-q"]
+SPAN = "dsd2dxd."  # the engine's host spans (dsd2dxd_tpu_torch/utils/trace.py)
+
+
+def cli_stdin(cli_run, argv: list, src: Path, dst: Path):
+    """The CLI with `src` on its stdin and `dst` as its stdout: (exit
+    code, wall seconds)."""
+    with open(src, "rb") as fin, open(dst, "wb") as fout:
+        saved = sys.stdin, sys.stdout
+        sys.stdin, sys.stdout = io.TextIOWrapper(fin), io.TextIOWrapper(fout)
+        try:
+            t0 = time.perf_counter()
+            rc = cli_run(argv)
+            sys.stdout.flush()
+            return rc, time.perf_counter() - t0
+        finally:
+            sys.stdin, sys.stdout = saved
+
+
+def busy_us(events: list, t0: float, t1: float) -> float:
+    """Microseconds of [t0, t1) covered by the union of the events'
+    intervals."""
+    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
+                   for e in events)
+    total, end = 0.0, t0
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            total += b - a
+            end = b
+    return total
+
+
+def trace_split(path: Path) -> dict:
+    """One stream's Chrome trace (DSD2DXD_PROFILE_DIR): the stream's wall
+    (``dsd2dxd.stream``), the device's busy share of it (the union of the
+    kernels' intervals, and of kernels, copies and sets), each host span's
+    summed ms and threads, the share of the stream's thread that no other
+    span covers, and the kernel events counted by name."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    host = [e for e in events if e.get("cat") == "user_annotation"
+            and e["name"].startswith(SPAN)]
+    stream = [e for e in host if e["name"] == SPAN + "stream"]
+    check(len(stream) == 1, f"{path.name}: {len(stream)} stream spans")
+    st = stream[0]
+    t0, t1, wall = st["ts"], st["ts"] + st["dur"], st["dur"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans, tids = {}, {}
+    for e in host:
+        if e is not st:
+            name = e["name"][len(SPAN):]
+            spans[name] = spans.get(name, 0.0) + e["dur"] / 1e3
+            tids.setdefault(name, set()).add(e["tid"])
+    names = {}
+    for e in kernels:
+        for k in ("fused_decim_kernel", "finish_tail_kernel",
+                  "finish_kernel"):
+            if k in e["name"]:
+                names[k] = names.get(k, 0) + 1
+                break
+    covered = busy_us([e for e in host if e is not st
+                       and e["tid"] == st["tid"]], t0, t1)
+    return {"wall_ms": wall / 1e3, "busy_k": busy_us(kernels, t0, t1) / wall,
+            "busy_all": busy_us(device, t0, t1) / wall, "spans": spans,
+            "tids": tids, "uncovered": 1.0 - covered / wall,
+            "kernels": names, "n_kernel_events": len(kernels)}
+
+
+def profile_phase(tmp: Path, cases: list, shard_devs: list,
+                  label: str) -> None:
+    """Phase 12d: DSD2DXD_PROFILE_DIR through the CLI. Each case (name,
+    argv, stdin file or None, output file, audio s, kernel events wanted
+    per name, the untraced output's sha256 or None) runs 6 times, untraced
+    and traced in turn; every traced run writes one trace, with the
+    wanted kernel events under their own names, drain.write on another
+    thread than read, and the untraced output. Then the first case with
+    a second stream beside it (one CLI call, its worker threads),
+    untraced and traced: exit 0, one or two traces, the same outputs; and
+    one sharded run of the first case over `shard_devs`."""
+    import statistics
+
+    import torch
+
+    from dsd2dxd_tpu_torch.cli.dsd2dxd import run as cli_run
+    from dsd2dxd_tpu_torch.pipeline import engine
+    from dsd2dxd_tpu_torch.utils import trace
+    from dsd2dxd_tpu_torch.utils.errors import ConfigError
+
+    t_phase = time.perf_counter()
+    try:  # the CLI's -q would swallow the engine's refusal
+        trace.all_threads_config()
+    except ConfigError as e:
+        fail(f"profile: {e}")
+    prof_dir = tmp / "prof"
+    env = trace.ENV
+    saved = os.environ.pop(env, None)
+
+    def run(argv, stdin, out_path, traced, want_sha, kernels):
+        """One CLI run: (wall s, trace split or None, output sha256)."""
+        if traced:
+            os.environ[env] = str(prof_dir)
+        before = set(prof_dir.glob("*.pt.trace.json"))
+        try:
+            if stdin is None:
+                t0 = time.perf_counter()
+                rc = cli_run(argv)
+                wall = time.perf_counter() - t0
+            else:
+                rc, wall = cli_stdin(cli_run, argv, stdin, out_path)
+        finally:
+            os.environ.pop(env, None)
+        check(rc == 0, f"profile: CLI {argv} exited {rc}")
+        new = set(prof_dir.glob("*.pt.trace.json")) - before
+        check(len(new) == (1 if traced else 0),
+              f"profile: {len(new)} trace files for one "
+              f"{'traced' if traced else 'untraced'} stream")
+        digest = sha256(out_path) if traced or want_sha is None else None
+        out_path.unlink()
+        check(digest is None or want_sha is None or digest == want_sha,
+              f"profile: the traced output of {argv} is not the untraced "
+              f"one")
+        if not traced:
+            return wall, None, digest
+        split = trace_split(new.pop())
+        check(split["kernels"] == kernels,
+              f"profile: the trace holds kernel events {split['kernels']} "
+              f"(of {split['n_kernel_events']}), want {kernels}")
+        write_t, read_t = split["tids"].get("drain.write", set()), \
+            split["tids"].get("read", set())
+        check(write_t and read_t and not write_t & read_t,
+              f"profile: drain.write on threads {write_t}, read on "
+              f"{read_t}: the drain thread is not in the trace")
+        return wall, split, digest
+
+    def pct(v: list) -> str:
+        return f"{min(v) * 100:.2f}-{max(v) * 100:.2f}"
+
+    def split_text(splits: list) -> str:
+        med = statistics.median
+        names = sorted({n for s in splits for n in s["spans"]})
+        return (f"stream {med(s['wall_ms'] for s in splits):.1f} ms; "
+                f"device busy: kernels {pct([s['busy_k'] for s in splits])} "
+                f"%, kernels + copies + sets "
+                f"{pct([s['busy_all'] for s in splits])} %; host spans "
+                f"(median ms): " + ", ".join(
+                    f"{n} {med(s['spans'].get(n, 0.0) for s in splits):.1f}"
+                    for n in names)
+                + f"; the stream's thread uncovered "
+                f"{pct([s['uncovered'] for s in splits])} %")
+
+    try:
+        for name, argv, stdin, out_path, sec, kernels, want_sha in cases:
+            rates = {False: [], True: []}
+            splits = []
+            for i in range(6):
+                traced = i % 2 == 1
+                wall, split, digest = run(argv, stdin, out_path, traced,
+                                          want_sha, kernels)
+                want_sha = want_sha or digest
+                rates[traced].append(sec / wall)
+                if split is not None:
+                    splits.append(split)
+            med = {t: statistics.median(r) for t, r in rates.items()}
+            phase("profile", f"{name}: audio-s/s untraced {med[False]:.1f} "
+                  f"({min(rates[False]):.1f}-{max(rates[False]):.1f}), "
+                  f"traced {med[True]:.1f} ({min(rates[True]):.1f}-"
+                  f"{max(rates[True]):.1f}), traced / untraced "
+                  f"{med[True] / med[False]:.3f}; from the 3 traces: "
+                  + split_text(splits) + f"; kernel events {kernels} per "
+                  f"trace; sha256 of every traced output the untraced "
+                  f"one's; card [{label}]")
+
+        # two streams at once on the CLI's worker threads, untraced and
+        # traced: one trace session per process, so one of them converts
+        # untraced (its spans in the open trace); nothing raises and no
+        # output changes
+        name, argv, stdin, out_path, sec, kernels, want_sha = cases[0]
+        src = Path(argv[-1])
+        twin = src.with_name(f"{src.stem}_twin{src.suffix}")
+        os.link(src, twin)
+        pair_dir = tmp / "pair"  # -p mirrors the two inputs' folder there
+        pair_dir.mkdir()
+        i = argv.index("-p")
+        pair_argv = argv[:i + 1] + [str(pair_dir)] + argv[i + 2:] + [
+            str(twin)]
+        shas = []
+        for traced in (False, True):
+            before = set(prof_dir.glob("*.pt.trace.json"))
+            if traced:
+                os.environ[env] = str(prof_dir)
+            try:
+                rc = cli_run(pair_argv)
+            finally:
+                os.environ.pop(env, None)
+            check(rc == 0, f"profile: two streams at once exited {rc}")
+            outs = sorted(pair_dir.rglob("*" + out_path.suffix))
+            check([o.name for o in outs] == [src.stem + out_path.suffix,
+                                             twin.stem + out_path.suffix],
+                  f"profile: two streams at once wrote {outs}")
+            shas.append([sha256(o) for o in outs])
+            for o in outs:
+                o.unlink()
+        twin.unlink()
+        new = set(prof_dir.glob("*.pt.trace.json")) - before
+        check(shas[0] == shas[1] and shas[0][0] == want_sha,
+              f"profile: two streams at once, traced outputs {shas[1]}, "
+              f"untraced {shas[0]}, {name} alone {want_sha}")
+        check(1 <= len(new) <= 2, f"profile: two streams at once wrote "
+              f"{len(new)} traces")
+        streams = []
+        for path in new:
+            events = json.loads(path.read_text())["traceEvents"]
+            streams.append(sum(1 for e in events
+                               if e.get("cat") == "user_annotation"
+                               and e.get("name") == SPAN + "stream"))
+        check(all(streams), f"profile: a trace of two streams holds no "
+              f"stream span ({streams})")
+        phase("profile", f"two streams at once ({name}'s .dsf and a link "
+              f"to it in one CLI call, on its worker threads): exit 0 "
+              f"untraced and traced, {len(new)} trace(s) holding "
+              f"{streams} dsd2dxd.stream span(s), both outputs' sha256 "
+              f"those of the untraced call; card [{label}]")
+
+        # one sharded run of the first case over the patched device list
+        real = engine.stream_devices
+        engine.stream_devices = lambda: shard_devs
+        os.environ["DSD2DXD_SHARD_STREAM"] = "1"
+        try:
+            wall, split, _d = run(argv, stdin, out_path, True, want_sha,
+                                  kernels)
+        finally:
+            engine.stream_devices = real
+            del os.environ["DSD2DXD_SHARD_STREAM"]
+        phase("profile", f"sharded {name} (DSD2DXD_SHARD_STREAM=1 over "
+              f"{', '.join(str(d) for d in shard_devs)}): {sec / wall:.1f} "
+              f"audio-s/s traced; " + split_text([split])
+              + f"; sha256 the streaming output's. torch "
+              f"{torch.__version__}. Phase wall "
+              f"{time.perf_counter() - t_phase:.1f} s; card [{label}]")
+    finally:
+        if saved is not None:
+            os.environ[env] = saved
+
+
 def main() -> int:
     import torch
 
@@ -782,6 +1056,13 @@ def main() -> int:
         ("E DSD512->352.8k", (E, DsdRate.DSD512, 352800), all_epilogues),
         ("E DSD256->88.2k", (E, DsdRate.DSD256, 88200), all_epilogues),
     ]
+    # K1 takes the channel from the grid's y: ÷8 and ÷64 at 1, 3 and 6
+    # channels (DSF carries 1-6)
+    cells = [(*cell, 2) for cell in cells] + [
+        (f"{name} {ch}ch", key, [(24, N), (24, T), (32, F)], ch)
+        for ch in (1, 3, 6)
+        for name, key in (("E DSD64->352.8k", (E, DsdRate.DSD64, 352800)),
+                          ("E DSD128->88.2k", (E, DsdRate.DSD128, 88200)))]
     def new_stats():
         return dict(diff=0.0, same=0, n=0, dpk=0.0, errs=[], noise=[])
 
@@ -849,29 +1130,30 @@ def main() -> int:
 
     max_err = {m: 0.0 for m in [*fused.MODE_LAUNCHES, "÷128"]}
     rng = np.random.default_rng(2026)
-    for name, key, epilogues in cells:
+    for name, key, epilogues, ch in cells:
         chain = get_chain(*key)
         r = fused.decimation(chain)
         tile = engine_tile(chain, key[1])
         taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32), device=dev)
                 for s in chain]
-        xs = [torch.from_numpy(rng.integers(0, 256, (2, tile), dtype=np.uint8)
-                               ).to(dev) for _ in range(3)]
+        xs = [torch.from_numpy(rng.integers(0, 256, (ch, tile),
+                                            dtype=np.uint8)).to(dev)
+              for _ in range(3)]
         steps = {ep: fused.make_fused_step(
-            chain, StepConfig(channels=2, tile_bytes=tile, bit_depth=ep[0],
+            chain, StepConfig(channels=ch, tile_bytes=tile, bit_depth=ep[0],
                               dither=ep[1], level_db=-1.5), dev)
             for ep in epilogues}
-        gain = fused._gain32(StepConfig(channels=2, tile_bytes=tile,
+        gain = fused._gain32(StepConfig(channels=ch, tile_bytes=tile,
                                         bit_depth=24, dither=N,
                                         level_db=-1.5))
         st = {ep: new_stats() for ep in epilogues}
-        h = fused.init_fused_halo(chain, 2, dev)
+        h = fused.init_fused_halo(chain, ch, dev)
         for t, x in enumerate(xs):
             k64 = philox.tile_key(7, t)
             y = fused.fused_decim_cascade(x, h, taps, chain, gain)
             yf = y.T.reshape(-1)
             for (bits, dither), step in steps.items():
-                cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=bits,
+                cfg = StepConfig(channels=ch, tile_bytes=tile, bit_depth=bits,
                                  dither=dither, level_db=-1.5)
                 wk, pk, hk = step(x, h, k64)
                 wr, pr = fused.decim_epilogue(y, k64, cfg)
@@ -888,7 +1170,7 @@ def main() -> int:
                 max_err[m] = max(max_err[m], s["diff"])
             parts.append(verdict(name, bits, dither, s))
         phase("kernel-vs-plain",
-              f"{name} (÷{r}, {tile} B/ch tiles, block_out "
+              f"{name} (÷{r}, {ch} channels, {tile} B/ch tiles, block_out "
               f"{fused.block_out_for(chain)}): " + "; ".join(parts))
 
     # partial final tile: the peak leaves the idle pad's ringing out
@@ -1052,6 +1334,29 @@ def main() -> int:
                   f"head, tail and finish; wire bytes and peak equal): "
                   + "; ".join(parts))
 
+    # K1e at 1, 3 and 6 channels: DSD64 -> 192k's ÷16 head, bit-equal
+    chain = get_chain(E, DsdRate.DSD64, 192000)
+    head = chain[:rational.rational_plan(chain).n_head]
+    tile = engine_tile(chain, DsdRate.DSD64)
+    taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32), device=dev)
+            for s in head]
+    coefs = fused.kernel_coefs(head, dev)
+    for ch in (1, 3, 6):
+        halo = fused.init_fused_halo(head, ch, dev)
+        for t in range(3):
+            x = torch.from_numpy(rng.integers(0, 256, (ch, tile),
+                                              dtype=np.uint8)).to(dev)
+            yk = fused.fused_head_cuda(x, halo, coefs, head)
+            yp = fused.fused_decim_cascade(x, halo, taps, head, 1.0)
+            torch.cuda.synchronize()
+            check(torch.equal(yk, yp), f"K1e at {ch} channels, tile {t}: "
+                  f"not bit-equal to the plain head "
+                  f"({float((yk - yp).abs().max())})")
+            halo = x[:, tile - halo.shape[1]:].contiguous()
+    phase("K1e-vs-plain", f"E DSD64->192k's ÷{fused.decimation(head)} head "
+          f"at 1, 3 and 6 channels ({tile} B/ch tiles): bit-equal on 3 "
+          f"tiles each")
+
     # partial final tile on a 48k chain: the peak of the valid prefix
     chain = get_chain(E, DsdRate.DSD64, 192000)
     rp = rational.rational_plan(chain)
@@ -1129,6 +1434,58 @@ def main() -> int:
         stream_wall["config 1"] = wall
         wav_path.unlink()
 
+        # 5b. e2e, mono: config 1's chain on a one-minute mono .dsf; then
+        # 5 s at `-d N` mono against the same tone in stereo (the kernel's
+        # channel is the grid's y: both channels of the stereo file and
+        # the mono file's one must be the same samples)
+        sec = 60
+        src_m = tmp / "tone_dsd64_mono_60s.dsf"
+        write_dsf(src_m, planes64[:1, :sec * DSD64_HZ // 8], DSD64_HZ)
+        n_tiles = -(-(sec * DSD64_HZ // 8) // tile_bytes)
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_run(["-o", "w", "-q", "-p", str(out_dir), str(src_m)])
+        wall = time.perf_counter() - t0
+        k1a = fused.MODE_LAUNCHES["K1a"]
+        check(rc == 0, f"mono: CLI exited {rc}")
+        check(k1a == fused.KERNEL_LAUNCHES == n_tiles,
+              f"mono: K1a launched {k1a} times for {n_tiles} tiles")
+        wav_m = out_dir / src_m.with_suffix(".wav").name
+        with wave.open(str(wav_m)) as w:
+            params = (w.getnchannels(), w.getsampwidth(), w.getframerate(),
+                      w.getnframes())
+            check(params == (1, 3, 352800, sec * 352800),
+                  f"mono WAV params {params}")
+            w.setpos(sec // 2 * 352800)
+            pcm = s24(w.readframes(352800)).reshape(-1, 1)
+        check(np.abs(pcm).max() > 1 << 20, "mono output is silent")
+        peak_hz = fft_peak_hz(pcm, 352800)
+        check(np.all(np.abs(peak_hz - 1000.0) < 2.0),
+              f"mono FFT peak at {peak_hz} Hz")
+        wav_m.unlink()
+        pair = {}
+        for ch in (1, 2):
+            src5 = tmp / f"tone_dsd64_{ch}ch_5s.dsf"
+            write_dsf(src5, planes64[:ch, :5 * DSD64_HZ // 8], DSD64_HZ)
+            rc = cli_run(["-d", "N", "-o", "w", "-q", "-p", str(out_dir),
+                          str(src5)])
+            check(rc == 0, f"mono pair: CLI exited {rc}")
+            out5 = out_dir / src5.with_suffix(".wav").name
+            pair[ch] = s24(bytes(wav_payload(out5))).reshape(-1, ch)
+            out5.unlink()
+            src5.unlink()
+        check(pair[1].shape == (5 * 352800, 1)
+              and np.array_equal(pair[1][:, 0], pair[2][:, 0])
+              and np.array_equal(pair[2][:, 0], pair[2][:, 1]),
+              "mono `-d N`: not the samples of either stereo channel")
+        phase("e2e", f"mono: CLI {sec} s DSD64 mono .dsf -> 24-bit 352.8k "
+              f"TPDF WAV in {wall:.2f} s = {sec / wall:.1f} audio-s/s; "
+              f"{n_tiles} tiles of {tile_bytes} B/ch, {k1a} K1a launches; "
+              f"FFT peak {peak_hz.tolist()} Hz; 5 s at `-d N`: the mono "
+              f"file's samples those of both stereo channels; card "
+              f"[{label}]")
+        src_m.unlink()
+
         # 6. e2e, integer 48k: the same .dsf -> 24-bit 96 kHz TPDF WAV -----
         chain = get_chain(E, DsdRate.DSD64, 96000)
         tile_bytes = engine_tile(chain, DsdRate.DSD64)
@@ -1173,16 +1530,7 @@ def main() -> int:
         tile_bytes = engine_tile(chain, DsdRate.DSD64)
         n_tiles = -(-n64 // tile_bytes)
         fused.reset_launch_counts()
-        with open(raw_in, "rb") as fin, open(raw_out, "wb") as fout:
-            saved = sys.stdin, sys.stdout
-            sys.stdin, sys.stdout = io.TextIOWrapper(fin), io.TextIOWrapper(fout)
-            try:
-                t0 = time.perf_counter()
-                rc = cli_run(["-f", "I", "-r", "176400", "-q"])
-                sys.stdout.flush()
-                wall = time.perf_counter() - t0
-            finally:
-                sys.stdin, sys.stdout = saved
+        rc, wall = cli_stdin(cli_run, CONFIG2_ARGV, raw_in, raw_out)
         launches["K1b"] = fused.MODE_LAUNCHES["K1b"]
         check(rc == 0, f"CLI exited {rc}")
         check(launches["K1b"] == fused.KERNEL_LAUNCHES == n_tiles,
@@ -1204,8 +1552,7 @@ def main() -> int:
               f"{tile_bytes} B/ch, {launches['K1b']} K1b launches; FFT peak "
               f"{peak_hz.tolist()} Hz; card [{label}]")
         stream_wall["config 2"] = wall  # beside the host-tools ceilings
-        raw_in.unlink()
-        raw_out.unlink()
+        raw_out.unlink()  # raw_in: the profile phase reads it again
         del planes64
 
         # 8. e2e, deep chain: DSD128 .dsf -> 20-bit 88.2k TPDF WAV (÷64)
@@ -1685,8 +2032,7 @@ def main() -> int:
         finally:
             engine.stream_devices = real_stream_devices
             del os.environ["DSD2DXD_SHARD_STREAM"]
-        for path in (src128, src256):
-            path.unlink()
+        src128.unlink()
 
         # round-robin: config 5's batch over every card
         cards = batch_devices()
@@ -1781,7 +2127,24 @@ def main() -> int:
             "config 1": SECONDS / stream_wall["config 1"],
             "config 2": SECONDS / stream_wall["config 2"],
             "config 4": SECONDS_CONFIG4 / stream_wall["config 4"]}, label)
-        src64.unlink()
+
+        # 12d. profile: DSD2DXD_PROFILE_DIR's traces of configs 1, 2 and 4
+        # and of one sharded run
+        n2 = -(-n64 // engine_tile(get_chain(E, DsdRate.DSD64, 176400),
+                                  DsdRate.DSD64))
+        profile_phase(tmp, [
+            ("config 1", ["-o", "w", "-q", "-p", str(out_dir), str(src64)],
+             None, out_dir / "tone_dsd64_180s.wav", SECONDS,
+             {"fused_decim_kernel": n1}, stream_sha["config 1"]),
+            ("config 2", CONFIG2_ARGV, raw_in, tmp / "out_176400.raw",
+             SECONDS, {"fused_decim_kernel": n2}, None),
+            ("config 4", ["-b", "32", "-o", "C", "-r", "192000", "-q", "-p",
+                          str(out_dir), str(src256)],
+             None, out_dir / "tone_dsd256_60s.aifc", SECONDS_CONFIG4,
+             {"fused_decim_kernel": n4, "finish_tail_kernel": n4},
+             stream_sha["config 4"])], [dev] * 4, label)
+        for path in (src64, src256, raw_in):
+            path.unlink()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

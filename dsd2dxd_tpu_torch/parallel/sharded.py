@@ -70,6 +70,7 @@ from dsd2dxd_tpu_torch.ops.plan import build_chain_plans, chain_tile_unit_bits
 from dsd2dxd_tpu_torch.ops.resample import StepConfig, stage_history_len
 from dsd2dxd_tpu_torch.pipeline import engine
 from dsd2dxd_tpu_torch.utils.errors import CancelledError, ConfigError
+from dsd2dxd_tpu_torch.utils.trace import span
 
 __all__ = ["chain_halo_bits", "halo_bytes_for", "split_overlap_save",
            "prefix_bytes", "make_sharded_convert", "convert_stream_tiled",
@@ -341,14 +342,17 @@ def convert_stream_tiled_chunked(read: Callable, chain: Sequence[Stage],
     behind the reads (as the streaming engine). ``max_bits`` caps the
     stream's valid bits (the trailing padding bits of a DSF). ``stats``,
     if given, receives tiles, valid_bits, write_s (the drain thread's
-    seconds in ``write``) and tile_peaks. Returns the stream peak
+    seconds in ``write``), consumed (input bytes per channel) and
+    tile_peaks. Its host spans are the streaming engine's
+    (``utils/trace.py``). Returns the stream peak
     (linear, post-level).
     """
     devices = [_device(d) for d in devices]
     n_dev = len(devices)
     c, tile = cfg.channels, cfg.tile_bytes
-    key = _Chain(chain)
-    bodies = [_cached_body(key, cfg, d, big_endian) for d in devices]
+    with span("dsd2dxd.setup"):
+        key = _Chain(chain)
+        bodies = [_cached_body(key, cfg, d, big_endian) for d in devices]
     prefix = bodies[0].prefix
     ratio = chain_ratio(chain)
     frame_bytes = c * bytes_per_sample(cfg.bit_depth)
@@ -380,30 +384,32 @@ def convert_stream_tiled_chunked(read: Callable, chain: Sequence[Stage],
     drains: collections.deque = collections.deque()
     pool = ThreadPoolExecutor(max_workers=1)
     try:
-        rings = [engine._Staging(d, c, prefix + tile, out_bytes,
-                                 engine.MAX_PENDING_DRAINS + 1)
-                 if d.type == "cuda" else None for d in devices]
+        with span("dsd2dxd.setup"):
+            rings = [engine._Staging(d, c, prefix + tile, out_bytes,
+                                     engine.MAX_PENDING_DRAINS + 1)
+                     if d.type == "cuda" else None for d in devices]
         while True:
             if cancel is not None and cancel():
                 raise CancelledError("Conversion canceled")
-            parts, got, eof = [], 0, False
-            while got < macro:
-                b = read(macro - got)
-                if b is None:
-                    eof = True
+            with span("dsd2dxd.read"):
+                parts, got, eof = [], 0, False
+                while got < macro:
+                    b = read(macro - got)
+                    if b is None:
+                        eof = True
+                        break
+                    parts.append(b)
+                    got += b.shape[1]
+                if got == 0:
                     break
-                parts.append(b)
-                got += b.shape[1]
-            if got == 0:
-                break
-            chunk = parts[0] if len(parts) == 1 else np.concatenate(parts,
-                                                                    axis=1)
-            if got < macro:
-                pad = np.full((c, macro - got), fused.IDLE_BYTE,
-                              dtype=np.uint8)
-                chunk = np.concatenate([chunk, pad], axis=1)
-            padded = np.concatenate([carry, chunk], axis=1)
-            carry = padded[:, macro:].copy()
+                chunk = (parts[0] if len(parts) == 1
+                         else np.concatenate(parts, axis=1))
+                if got < macro:
+                    pad = np.full((c, macro - got), fused.IDLE_BYTE,
+                                  dtype=np.uint8)
+                    chunk = np.concatenate([chunk, pad], axis=1)
+                padded = np.concatenate([carry, chunk], axis=1)
+                carry = padded[:, macro:].copy()
             items = []
             for i in range(-(-got // tile)):
                 # the streaming engine's bookkeeping, tile by tile
@@ -418,34 +424,40 @@ def convert_stream_tiled_chunked(read: Callable, chain: Sequence[Stage],
                 key = tile_key(seed, t_global)
                 first = t_global == 0
                 body, ring = bodies[i], rings[i]
-                if ring is not None:
-                    (ev, out, pk), _ = ring.run(
-                        chunk_idx % ring.n, window,
-                        lambda x, b=body, f=first, k=key, n=n_valid:
-                            (*b(x, f, k, n), None))
-                else:
-                    ev = None
-                    out, pk = body(torch.from_numpy(
-                        np.ascontiguousarray(window)), first, key, n_valid)
+                with span("dsd2dxd.stage"):
+                    if ring is not None:
+                        (ev, out, pk), _ = ring.run(
+                            chunk_idx % ring.n, window,
+                            lambda x, b=body, f=first, k=key, n=n_valid:
+                                (*b(x, f, k, n), None))
+                    else:
+                        ev = None
+                        out, pk = body(torch.from_numpy(
+                            np.ascontiguousarray(window)), first, key,
+                            n_valid)
                 items.append((ev, out, pk, n_valid))
                 t_global += 1
             chunk_idx += 1
             drains.append(pool.submit(do_drain, items))
-            while len(drains) > engine.MAX_PENDING_DRAINS:
-                drains.popleft().result()
+            with span("dsd2dxd.wait_drain"):
+                while len(drains) > engine.MAX_PENDING_DRAINS:
+                    drains.popleft().result()
             if progress is not None and total_bytes:
                 progress(ProgressUpdate(percent=min(
                     100.0 * consumed / total_bytes, ONE_HUNDRED_PERCENT)))
             if eof:
                 break
-        while drains:
-            drains.popleft().result()
+        with span("dsd2dxd.wait_drain"):
+            while drains:
+                drains.popleft().result()
     finally:
-        pool.shutdown(wait=True)
-        for ring in rings:
-            if ring is not None:
-                ring.close()
+        with span("dsd2dxd.finish"):
+            pool.shutdown(wait=True)
+            for ring in rings:
+                if ring is not None:
+                    ring.close()
     if stats is not None:
-        stats.update(tiles=t_global, valid_bits=valid_bits,
-                     write_s=write_s[0], tile_peaks=tile_peaks)
+        stats.update(tiles=t_global, consumed=consumed,
+                     valid_bits=valid_bits, write_s=write_s[0],
+                     tile_peaks=tile_peaks)
     return peak_box[0]

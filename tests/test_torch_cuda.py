@@ -69,7 +69,7 @@ def _ragged(chain, tile):
     return tile // fb * fb
 
 
-def _check_against_plain(dev, chain, tile, epilogues, seed=12):
+def _check_against_plain(dev, chain, tile, epilogues, seed=12, channels=2):
     """Kernel against its plain version on the same card inputs, two
     streamed tiles per epilogue: NONE within 5 LSB, TPDF/RECT with the
     same key within 1 LSB, f32 NONE and FPD bit-equal, peak within 1e-4,
@@ -78,12 +78,12 @@ def _check_against_plain(dev, chain, tile, epilogues, seed=12):
     taps = [torch.tensor(np.asarray(s.taps, dtype=np.float32), device=dev)
             for s in chain]
     for bits, dither in epilogues:
-        cfg = StepConfig(channels=2, tile_bytes=tile, bit_depth=bits,
+        cfg = StepConfig(channels=channels, tile_bytes=tile, bit_depth=bits,
                          dither=dither, level_db=-1.5)
         step = fused.make_fused_step(chain, cfg, dev)
-        h = fused.init_fused_halo(chain, 2, dev)
+        h = fused.init_fused_halo(chain, channels, dev)
         for t in range(2):
-            x = torch.from_numpy(rng.integers(0, 256, (2, tile),
+            x = torch.from_numpy(rng.integers(0, 256, (channels, tile),
                                               dtype=np.uint8)).to(dev)
             key = philox.tile_key(99, t)
             before = fused.KERNEL_LAUNCHES
@@ -116,6 +116,18 @@ def test_every_epilogue_matches_plain_on_card(cuda_device, cell, tile):
     """K1b/K1c/K1d: one chain per class x every epilogue."""
     chain = get_chain(*DEEP[cell])
     _check_against_plain(cuda_device, chain, _ragged(chain, tile), EPILOGUES)
+
+
+@pytest.mark.parametrize("cell", ["E", "div64"])
+@pytest.mark.parametrize("channels", [1, 3, 6])
+def test_kernel_channel_counts_on_card(cuda_device, cell, channels):
+    """K1 at 1, 3 and 6 channels (the channel is the grid's y) on the ÷8
+    and the ÷64 chain: 24-bit NONE and TPDF, f32 FPD, against its plain
+    version, the last block ragged."""
+    chain = get_chain(*{**CELLS, **DEEP}[cell])
+    _check_against_plain(cuda_device, chain, _ragged(chain, (1 << 18) + 3000),
+                         [(24, DitherType.NONE), (24, DitherType.TPDF),
+                          (32, DitherType.FPD)], channels=channels)
 
 
 @pytest.mark.parametrize("cell,block_out", [
@@ -316,6 +328,16 @@ CHAINS_48K = [(FilterType.EQUIRIPPLE, rate, out)
 def test_head_kernel_bit_equal_on_card(cuda_device, key):
     """K1e against fused_decim_cascade(gain=1), two streamed tiles, one
     ragged in its last block: bit-equal; one K1e launch each."""
+    _check_head(cuda_device, key, 2)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 6])
+def test_head_kernel_channel_counts_on_card(cuda_device, channels):
+    """K1e at 1, 3 and 6 channels on DSD64 -> 192k's ÷16 head."""
+    _check_head(cuda_device, CHAINS_48K[1], channels)
+
+
+def _check_head(cuda_device, key, channels):
     chain = get_chain(*key)
     rp = rational.rational_plan(chain)
     head = chain[:rp.n_head]
@@ -324,9 +346,9 @@ def test_head_kernel_bit_equal_on_card(cuda_device, key):
     coefs = fused.kernel_coefs(head, cuda_device)
     tile = rp.unit_bits // 8 * 3
     rng = np.random.default_rng(31)
-    h = fused.init_fused_halo(head, 2, cuda_device)
+    h = fused.init_fused_halo(head, channels, cuda_device)
     for _ in range(2):
-        x = torch.from_numpy(rng.integers(0, 256, (2, tile),
+        x = torch.from_numpy(rng.integers(0, 256, (channels, tile),
                                           dtype=np.uint8)).to(cuda_device)
         before = fused.MODE_LAUNCHES["K1e"]
         yk = fused.fused_head_cuda(x, h, coefs, head)

@@ -604,3 +604,81 @@ def test_cli_batch_on_two_worker_threads(tone_dsd64_stereo_dsf, tmp_path,
         a, = (f.read_bytes() for f in batch.rglob(f"{s.stem}.wav"))
         b, = (f.read_bytes() for f in single.rglob(f"{s.stem}.wav"))
         assert len(a) > 44 + 6 * rate // 10 and a == b
+
+
+def test_tagged_dff_to_aiff_matches_jax_converter(tone_dsd64_stereo_dsf,
+                                                  tmp_path, small_tiles):
+    """A .dff with an ID3 tag -> 24-bit AIFF at 88.2k, `-d N` (the path of
+    the JAX suite's test_engine_aiff_24bit_with_id3, on a synthesized
+    file): the port's AIFF against the JAX Converter's. FORM, COMM, the
+    `ID3 ` chunk (the tag's bytes) and SSND's header byte for byte, the
+    same length; the PCM within 5 LSB past the first 5 ms, as every file
+    held against the JAX Converter (the port's cascade is idle-primed,
+    the JAX phase path zero-primed, and they sum in another order)."""
+    from dsd2dxd_tpu_torch.formats.dff import write_dff
+    from dsd2dxd_tpu_torch.formats.id3 import Id3Frame, Id3Tag, parse_id3
+
+    tag = Id3Tag(frames=[Id3Frame.text_frame("TIT2", "1kHz Test Tone DSD64"),
+                         Id3Frame.text_frame("TALB", "album")]).to_bytes()
+    src = tmp_path / "in" / "tone.dff"
+    src.parent.mkdir()
+    write_dff(src, _planes(tone_dsd64_stereo_dsf), 2_822_400, id3=tag)
+    outs = []
+    for cls, name, kw in ((TConverter, "t", dict(device="cpu")),
+                          (JConverter, "j", {})):
+        conv = cls.from_container(
+            bit_depth=24, output=OutputType.AIFF, level_db=0.0,
+            output_rate=88200, out_dir=tmp_path / name,
+            dither=DitherType.NONE, filt=FilterType.EQUIRIPPLE,
+            append_rate=False, base_dir=src.parent, input_path=src, **kw)
+        conv.do_conversion()
+        assert conv.output_path().suffix == ".aif"
+        outs.append(conv.output_path().read_bytes())
+    t, j = outs
+    off = t.index(b"ID3 ")
+    size = int.from_bytes(t[off + 4:off + 8], "big")
+    assert t[off + 8:off + 8 + size] == tag
+    assert parse_id3(t[off + 8:off + 8 + size]).get_text("TIT2") \
+        == "1kHz Test Tone DSD64"
+    body = t.index(b"SSND") + 16
+    assert t[:body] == j[:body]
+    assert len(t) == len(j)
+    tv = _payload(tmp_path / "t" / "tone.aif", True)[1]
+    jv = _payload(tmp_path / "j" / "tone.aif", True)[1]
+    assert tv.shape == (88200 // 2, 2)
+    skip = 88200 // 200
+    assert np.abs(tv[skip:] - jv[skip:]).max() <= 5
+    assert np.abs(tv).max() > 1 << 21
+
+
+def test_trace_line_has_the_dsd_input_rate(tone_dsd64_stereo_dsf, tmp_path,
+                                           small_tiles):
+    """The per-stream TRACE line carries the JAX engine's "MiB/s DSD in"
+    beside the real-time factor: the stream's input bytes over its
+    wall."""
+    import logging
+    import re
+
+    from dsd2dxd_tpu_torch.utils.logging import TRACE, get_logger
+
+    lines: list = []
+    handler = logging.Handler()
+    handler.emit = lambda r: lines.append(r.getMessage())
+    log = get_logger()
+    level = log.level
+    log.addHandler(handler)
+    log.setLevel(TRACE)
+    try:
+        conv = _convert(TConverter, tone_dsd64_stereo_dsf, tmp_path,
+                        device="cpu")
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    line, = [ln for ln in lines if "real-time" in ln]
+    m = re.fullmatch(r"(\S+): ([\d.]+)s audio in ([\d.]+)s \((\d+)x "
+                     r"real-time, ([\d.]+) MiB/s DSD in, on cpu\)", line)
+    assert m and m[1] == tone_dsd64_stereo_dsf.name
+    info = conv.source.info
+    rate = (info.data_bytes_per_channel * info.channels
+            / conv.stats["elapsed_s"] / 2**20)
+    assert m[5] == f"{rate:.1f}"

@@ -113,19 +113,24 @@ def _decode(wire: torch.Tensor, bit_depth: int, big_endian=False):
     return v >> 4 if bit_depth == 20 else v
 
 
-@pytest.mark.parametrize("key", [E64, X64, D64], ids=["E", "X", "D"])
-def test_plain_cascade_matches_jax_fused_float(key):
-    """Both idle-primed: no head skip. Three tiles, state carried."""
+@pytest.mark.parametrize("key,channels", [
+    pytest.param(E64, 2, id="E"), pytest.param(X64, 2, id="X"),
+    pytest.param(D64, 2, id="D"), pytest.param(E64, 1, id="E-mono"),
+    pytest.param(E64, 3, id="E-3ch"), pytest.param(E64, 6, id="E-6ch")])
+def test_plain_cascade_matches_jax_fused_float(key, channels):
+    """Both idle-primed: no head skip. Three tiles, state carried; the
+    ÷8 chain at 1, 3 and 6 channels too (DSF carries 1-6; K1 takes the
+    channel from the grid)."""
     chain, jchain = get_chain(*key), _jchain(key)
-    jcfg = JStepConfig(channels=2, tile_bytes=TILE, bit_depth=32,
+    jcfg = JStepConfig(channels=channels, tile_bytes=TILE, bit_depth=32,
                        dither=jtypes.DitherType.NONE, level_db=LEVEL)
     jstep, halo_bytes = jfused.make_fused_step(jchain, jcfg, interpret=True)
     assert halo_bytes == tfused.chain_halo_bytes(chain)
-    h_j = jnp.asarray(jfused.init_fused_halo(jchain, 2))
-    h_t = tfused.init_fused_halo(chain, 2)
+    h_j = jnp.asarray(jfused.init_fused_halo(jchain, channels))
+    h_t = tfused.init_fused_halo(chain, channels)
     np.testing.assert_array_equal(h_t.numpy(), np.asarray(h_j))
-    gain = tfused._gain32(_cfg())
-    for t, x in enumerate(_tiles(5, 3)):
+    gain = tfused._gain32(_cfg(channels=channels))
+    for t, x in enumerate(_tiles(5, 3, channels)):
         oj, pj, h_j = jstep(x, h_j, t)
         y = tfused.fused_decim_cascade(torch.from_numpy(x), h_t, _taps(chain),
                                        chain, gain)
