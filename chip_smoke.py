@@ -158,6 +158,21 @@ one line per chain); any failed check exits non-zero:
     run of config 1 (DSD2DXD_SHARD_STREAM=1 over cuda:0 x 4), the same
     split and checks. Fails, saying so, where torch's profiler cannot
     record every thread (profile_all_threads).
+12e. bench: `python -m dsd2dxd_tpu_torch.tools.bench` (the port of
+    bench.py) in a subprocess per mode, about 60 s: the device step
+    (8 staged 16 MiB/ch tiles, CUDA events), --e2e (upload, step and
+    download per tile) and --config 1-5 (BASELINE configs 1-5 on
+    bench.py's fixtures, 8-24 s each, through the Converter and the CLI).
+    Each must print exactly one JSON line on stdout with bench.py's
+    metric name (the e2e one without `_tunnel`) and a positive xRT, and
+    launch its path's kernels (the step modes K1a 8 times per run, no
+    other); config 4's DSD512 -> 352.8k output must be an f32 AIFC of 8 x
+    352800 frames with its tone at 1 kHz. The lines are printed as they
+    come. Then entry()'s flagship step (one K1a launch) against
+    entry("cpu")'s plain step: within 1 LSB, >= 99.9 % identical, peak
+    within 1e-4; and dryrun_multichip(4) over cuda:0 x 4 (the ÷8 and 96k
+    chains at 24-bit TPDF and f32 NONE: the grid's shapes, finite peaks,
+    the stream's bytes equal to the streaming step's).
 13. probes: the floor probes of K1 (dsd2dxd_tpu_torch/tools). Every P1
     mode (dmabench: noop, noflush, dma, halo0, contig, bspec; all but
     bspec copy their window with K1's 16-byte copy) at each of K1's
@@ -201,6 +216,7 @@ kernels (K1's ÷128 chain a row of its own; launches from the e2e phase
 or tool run that drives each, named in the row's launches_from: K2 "from
 z", P1 and P2 are launched by their tools' timing loops and by no
 conversion; launches_sharded those of the sharded phase over cuda:0 x 4;
+launches_bench those of the bench phase's subprocesses, warm runs included;
 max_abs_err in LSB of the output depth, absolute for f32; bound_ms the
 largest of the bytes over 3.35 TB/s, the f32 operations over 67 TFLOP/s
 and, for K2's dithered epilogues, the Philox calls' 18 multiplies (or
@@ -902,6 +918,128 @@ def profile_phase(tmp: Path, cases: list, shard_devs: list,
     finally:
         if saved is not None:
             os.environ[env] = saved
+
+
+# tools/bench.py's modes, in the order they run, and the kernel modes
+# each launches: config 1 ÷8 24-bit; 2 ÷16; 3 ÷64 at f32 (NJAD); 4 DSD256
+# -> 384k (K1e + K2t) and DSD512 -> 352.8k (÷64 f32); 5 ÷8 and DSD128 ÷16
+BENCH_MODES = [("device", [], {"K1a"}), ("e2e", ["--e2e"], {"K1a"}),
+               ("config 1", ["--config", "1"], {"K1a"}),
+               ("config 2", ["--config", "2"], {"K1b"}),
+               ("config 3", ["--config", "3"], {"K1c", "K1d"}),
+               ("config 4", ["--config", "4"], {"K1e", "K2t", "K1c", "K1d"}),
+               ("config 5", ["--config", "5"], {"K1a", "K1b"})]
+
+
+def bench_phase(label: str) -> dict:
+    """Phase 12e: ``python -m dsd2dxd_tpu_torch.tools.bench`` in a
+    subprocess per mode (the device step, --e2e, --config 1-5): one JSON
+    line each on stdout, bench.py's metric name, a positive xRT, the
+    launches of each mode's kernels (the step modes: K1a 8 times per run);
+    config 4's DSD512 -> 352.8k output an f32 AIFC with its tone at 1 kHz.
+    Then entry()'s flagship step on the card against entry("cpu")'s plain
+    step, and dryrun_multichip(4) over cuda:0 x 4. Returns the launches of
+    the bench's subprocesses by mode."""
+    import numpy as np
+    import torch
+
+    from dsd2dxd_tpu_torch.entry import dryrun_multichip, entry
+    from dsd2dxd_tpu_torch.ops import fused
+    from dsd2dxd_tpu_torch.tools import bench
+
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    with tempfile.TemporaryDirectory(prefix="dsd2dxd_smoke_bench_") as tmp:
+        tmp = Path(tmp)
+        # each subprocess imports torch anew; where its installation holds
+        # no bytecode, the first one's compiled modules serve the others
+        env = dict(os.environ, PYTHONPYCACHEPREFIX=str(tmp / "pycache"))
+        for name, mode, want_modes in BENCH_MODES:
+            config = int(mode[1]) if mode[:1] == ["--config"] else None
+            out_dir = tmp / name.replace(" ", "")
+            argv = [sys.executable, "-m", "dsd2dxd_tpu_torch.tools.bench",
+                    *mode, "--out", str(out_dir)]
+            t0 = time.perf_counter()
+            res = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                                 text=True, timeout=300)
+            wall = time.perf_counter() - t0
+            check(res.returncode == 0, f"bench {name} exited "
+                  f"{res.returncode}: {res.stderr[-3000:]}")
+            out = res.stdout.splitlines()
+            check(len(out) == 1, f"bench {name} printed {len(out)} lines "
+                  f"on stdout, want one: {out[:5]}")
+            line = json.loads(out[0])
+            value = line.get("value")
+            check(line.get("metric") == bench.metric_name(
+                      mode == ["--e2e"], config)
+                  and line.get("unit") == "x_realtime"
+                  and isinstance(value, (int, float)) and value > 0
+                  # vs_baseline is rounded from the unrounded xRT, as
+                  # bench.py's, so it may sit one step off value / 1000
+                  and abs(line.get("vs_baseline", -1.0) - value / 1000.0)
+                  <= 0.0006,
+                  f"bench {name}: {line}")
+            got = line["launches"]
+            check(set(got) == want_modes,
+                  f"bench {name} launched {got}, want modes {want_modes}")
+            if config is None:
+                check(got == {"K1a": bench.N_TILES * line["runs"]},
+                      f"bench {name}: {got} in {line['runs']} runs, want "
+                      f"{bench.N_TILES} K1a launches per run")
+            if config == 4:
+                ch, frames, bits, ctype, pcm = read_aifc_f32(
+                    out_dir / "w2" / "bench512.aifc")
+                check((ch, frames, bits, ctype) == (2, 8 * 352800, 32,
+                                                    b"fl32"),
+                      f"config 4's DSD512 AIFC COMM "
+                      f"{(ch, frames, bits, ctype)}")
+                mid = pcm[4 * 352800:5 * 352800]
+                check(bool(np.isfinite(pcm).all())
+                      and np.abs(mid).max() > 0.25,
+                      "config 4's DSD512 output is silent or not finite")
+                peak512 = fft_peak_hz(mid, 352800)
+                check(np.all(np.abs(peak512 - 1000.0) < 2.0),
+                      f"config 4's DSD512 FFT peak at {peak512} Hz")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            print(out[0], flush=True)
+            phase("bench", f"{name}: {line['metric']} = {value} "
+                  f"(vs_baseline {line['vs_baseline']}), {line['runs']} runs, "
+                  f"launches {got}; subprocess {wall:.1f} s"
+                  + (f"; DSD512 -> 352.8k f32 AIFC {frames} frames, FFT "
+                     f"peak {peak512.tolist()} Hz" if config == 4 else "")
+                  + f"; card [{label}]")
+
+    # entry(): the flagship step on the card against its plain version
+    step, (x, halo, key) = entry()
+    fused.reset_launch_counts()
+    wire, peak, _ = step(x, halo, key)
+    torch.cuda.synchronize()
+    k1a = fused.MODE_LAUNCHES["K1a"]
+    check(k1a == fused.KERNEL_LAUNCHES == 1, f"entry(): {k1a} K1a launches")
+    pstep, pargs = entry(device="cpu")
+    pwire, ppeak, _ = pstep(*pargs)
+    d = s24(wire.cpu().numpy()) - s24(pwire.numpy())
+    same = float((d == 0).mean())
+    check(np.abs(d).max() <= TOL_DITHER_LSB and same >= 0.999
+          and abs(float(peak) - float(ppeak)) < 1e-4,
+          f"entry(): kernel vs plain max {np.abs(d).max()} LSB, {same:.5f} "
+          f"identical, peak {float(peak)} vs {float(ppeak)}")
+    # dryrun_multichip(4): the sharded route over cuda:0 x 4
+    fused.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        dryrun_multichip(4)
+    dry = dict(fused.MODE_LAUNCHES)
+    check(buf.getvalue().startswith("dryrun_multichip OK over 4 entries")
+          and dry["K1a"] > 0 and dry["K2t"] > 0,
+          f"dryrun_multichip(4): {buf.getvalue()!r}, launches {dry}")
+    phase("bench", f"entry(): K1a on the flagship's 64 KiB/ch tile vs plain "
+          f"max {np.abs(d).max()} LSB, {same:.5f} identical, peak "
+          f"{float(peak):.6f}; {buf.getvalue().strip()}; its launches "
+          f"{ {k: v for k, v in dry.items() if v} }; bench "
+          f"launches {launches}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s; card [{label}]")
+    return launches
 
 
 def main() -> int:
@@ -2148,6 +2286,9 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # 12e. bench: tools/bench.py's modes, entry() and dryrun_multichip(4)
+    bench_launches = bench_phase(label)
+
     # 13. probes: P1 (dmabench) and P2 (floorstrip) ---------------------------
     from dsd2dxd_tpu_torch import tools
     from dsd2dxd_tpu_torch.tools import PHILOX_INT_OPS, dmabench, floorstrip
@@ -2666,6 +2807,7 @@ def main() -> int:
                              f"over cuda:0 x 4): {sharded_launches[m]}"
                              if m in sharded_launches else "")),
         "launches_sharded": sharded_launches.get(m, 0),
+        "launches_bench": bench_launches.get(m, 0),
         "max_abs_err": max_err[m],
         "ms": timed[m][0], "plain_ms": timed[m][1],
         "bound_ms": bounds[m][0], "bound_by": bounds[m][1],

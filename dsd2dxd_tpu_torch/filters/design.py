@@ -43,7 +43,6 @@ from functools import lru_cache
 from pathlib import Path
 
 import numpy as np
-from scipy import signal
 
 from dsd2dxd_tpu_torch.formats.dsd_types import (
     DsdRate,
@@ -93,6 +92,15 @@ class FilterDesignError(RuntimeError):
     instead of caching a best-effort design (the cache is permanent)."""
 
 
+def _signal():
+    """scipy.signal, imported at the first design rather than with the
+    module: a chain read from the table cache needs none, and the import
+    is seconds of a process's start-up."""
+    from scipy import signal
+
+    return signal
+
+
 def _even(n: int) -> int:
     return n + (n & 1)
 
@@ -105,7 +113,7 @@ def _remez_lowpass(n_taps: int, fs: float, pass_hz: float, stop_hz: float,
     ds = 10 ** (-att_db / 20.0)
     n_taps = _even(n_taps)
     try:
-        taps = signal.remez(
+        taps = _signal().remez(
             n_taps,
             [0.0, pass_hz, stop_hz, fs / 2.0],
             [1.0, 0.0],
@@ -125,8 +133,8 @@ def _measure(taps: np.ndarray, fs: float, pass_hz: float,
     """(passband deviation dB, stopband attenuation dB) on a dense grid."""
     wp = np.linspace(0.0, pass_hz, 256) / (fs / 2.0) * np.pi
     ws = np.linspace(stop_hz, fs / 2.0, 1024) / (fs / 2.0) * np.pi
-    _, hp = signal.freqz(taps, worN=wp)
-    _, hs = signal.freqz(taps, worN=ws)
+    _, hp = _signal().freqz(taps, worN=wp)
+    _, hs = _signal().freqz(taps, worN=ws)
     dev = float(np.max(np.abs(20.0 * np.log10(np.abs(hp) + 1e-300))))
     att = float(-np.max(20.0 * np.log10(np.abs(hs) + 1e-300)))
     return dev, att
@@ -158,9 +166,9 @@ def _verified_lowpass(fs: float, pass_hz: float, stop_hz: float,
 
 def _kaiser_lowpass(n_taps: int, fs: float, pass_hz: float, stop_hz: float,
                     att_db: float) -> np.ndarray:
-    beta = signal.kaiser_beta(att_db)
+    beta = _signal().kaiser_beta(att_db)
     cutoff = (pass_hz + stop_hz) / 2.0
-    return signal.firwin(
+    return _signal().firwin(
         _even(n_taps), cutoff, window=("kaiser", beta), fs=fs, scale=True
     )
 
@@ -215,7 +223,7 @@ def _quality_stage(filt: FilterType, fs_in: float, out_hz: int,
         n = _even(_estimate_taps((stop_hz - pass_hz) / fs_virtual, 110.0))
         att_meas = float("nan")
         for _ in range(24):
-            taps = signal.firwin(
+            taps = _signal().firwin(
                 n, cutoff, window=("chebwin", 112.0), fs=fs_virtual, scale=True
             )
             _, att_meas = _measure(taps, fs_virtual, pass_hz, stop_hz)

@@ -664,7 +664,9 @@ def test_sharded_on_one_card_twice_equals_streaming(cuda_device, out_hz):
     """parallel/sharded over [cuda:0, cuda:0] (two staging rings on one
     card): every tile's wire bytes and peak equal to the streaming step's
     at 24-bit TPDF and f32 FPD; one K1 (K1e + K2t) launch per tile, and
-    one K1e warm launch per 48k tile after the first."""
+    one K1e warm launch per 48k tile after the first, in each of
+    check_cell's passes: one per epilogue and one more at 24-bit TPDF that
+    times both routes."""
     from dsd2dxd_tpu_torch.tools import shardcheck
 
     devs = [cuda_device, cuda_device]
@@ -673,11 +675,63 @@ def test_sharded_on_one_card_twice_equals_streaming(cuda_device, out_hz):
     res = shardcheck.check_cell(DsdRate.DSD64, out_hz, devs, 2, 256)
     assert res["equal"], res
     n = res["tiles"]
+    passes = len(shardcheck.EPILOGUES) + 1
     if rational.rational_head_len(chain) is None:
-        assert fused.KERNEL_LAUNCHES == 2 * 2 * n  # 2 epilogues, 2 routes
+        assert fused.KERNEL_LAUNCHES == passes * 2 * n  # 2 routes: 6n
     else:
-        assert fused.MODE_LAUNCHES["K2t"] == 2 * 2 * n
-        assert fused.MODE_LAUNCHES["K1e"] == 2 * (2 * n + n - 1)
+        assert fused.MODE_LAUNCHES["K2t"] == passes * 2 * n
+        assert fused.MODE_LAUNCHES["K1e"] == passes * (2 * n + n - 1)
+
+
+# -- the driver entry points: entry.py, tools/bench.py --------------------------
+
+def test_entry_step_on_card_against_plain(cuda_device):
+    """entry()'s flagship step on the card (K1a) against entry("cpu")'s
+    plain step on the same bytes and key: within 1 LSB, >= 99.9 %
+    identical, peak within 1e-4, one K1a launch."""
+    from dsd2dxd_tpu_torch.entry import entry
+
+    step, (x, halo, key) = entry()
+    assert x.device == cuda_device
+    fused.reset_launch_counts()
+    wire, peak, _ = step(x, halo, key)
+    assert fused.MODE_LAUNCHES["K1a"] == fused.KERNEL_LAUNCHES == 1
+    pstep, (px, phalo, pkey) = entry(device="cpu")
+    pwire, ppeak, _ = pstep(px, phalo, pkey)
+    d = _decode(wire) - _decode(pwire)
+    assert np.abs(d).max() <= 1
+    assert float((d == 0).mean()) >= 0.999
+    assert abs(float(peak) - float(ppeak)) < 1e-4
+
+
+def test_dryrun_multichip_on_one_card(cuda_device, capsys):
+    """dryrun_multichip(4) over cuda:0 x 4 (one card): its checks hold,
+    and its tiles launched the kernels."""
+    from dsd2dxd_tpu_torch.entry import dryrun_multichip
+
+    fused.reset_launch_counts()
+    dryrun_multichip(4)
+    assert capsys.readouterr().out.startswith(
+        "dryrun_multichip OK over 4 entries (cuda:0, cuda:0")
+    assert fused.MODE_LAUNCHES["K1a"] > 0 and fused.MODE_LAUNCHES["K2t"] > 0
+
+
+@pytest.mark.parametrize("mode", ["device", "e2e"])
+def test_bench_step_modes_on_card(cuda_device, mode):
+    """tools/bench.py's device and e2e loops at 2 tiles of 1 MiB/ch: a
+    positive time, one K1a launch per tile of every run."""
+    from dsd2dxd_tpu_torch.tools import bench
+
+    fn = bench.device_step if mode == "device" else bench.e2e_step
+    fused.reset_launch_counts()
+    res = fn(cuda_device, n_tiles=2, tile_bytes=1 << 20)
+    assert res["seconds"] > 0
+    # round_robin runs a rep again where its enqueue outlasted its sleep
+    if mode == "device":
+        assert res["runs"] >= bench.DEVICE_REPS + 2
+    else:
+        assert res["runs"] == bench.E2E_REPS + 1
+    assert fused.MODE_LAUNCHES["K1a"] == 2 * res["runs"]
 
 
 def test_launch_refuses_another_device_index(cuda_device):

@@ -1,7 +1,8 @@
 """The port stands alone: a fresh interpreter imports every module of
-dsd2dxd_tpu_torch, converts a CPU tile of each family and runs the CLI on
-a small .dsf, and neither jax nor any module of the JAX package
-(dsd2dxd_tpu) is loaded; no source file of the port, nor chip_smoke.py,
+dsd2dxd_tpu_torch, converts a CPU tile of each family, runs the CLI on a
+small .dsf and the driver entry points (entry.py, tools/bench.py's device
+and e2e loops) at a tiny size, and neither jax nor any module of the JAX
+package (dsd2dxd_tpu) is loaded; no source file of the port, nor chip_smoke.py,
 imports either."""
 
 import os
@@ -42,7 +43,9 @@ assert {"dsd2dxd_tpu_torch.parallel.sharded", "dsd2dxd_tpu_torch.ops.dsm",
         "dsd2dxd_tpu_torch.tools.compare_reference",
         "dsd2dxd_tpu_torch.tools.flacbench",
         "dsd2dxd_tpu_torch.tools.njadbench",
-        "dsd2dxd_tpu_torch.tools.hostbudget"} <= set(names)
+        "dsd2dxd_tpu_torch.tools.hostbudget",
+        "dsd2dxd_tpu_torch.tools.bench",
+        "dsd2dxd_tpu_torch.entry"} <= set(names)
 from dsd2dxd_tpu_torch import DitherType, DsdRate, FilterType
 from dsd2dxd_tpu_torch.cli.dsd2dxd import run
 from dsd2dxd_tpu_torch.formats.dsf import write_dsf
@@ -76,6 +79,16 @@ write_dsf(d / "t.dsf", rng.integers(0, 256, (2, 40000), dtype=np.uint8),
 assert run(["-o", "w", "-q", "-p", str(d / "out"), str(d / "t.dsf")],
            device="cpu") == 0
 assert (d / "out" / "t.wav").stat().st_size == 44 + 40000 * 2 * 3
+import contextlib, io
+from dsd2dxd_tpu_torch.entry import dryrun_multichip, entry
+from dsd2dxd_tpu_torch.tools import bench
+step, args = entry("cpu")
+wire, peak, halo = step(*args)
+assert wire.numel() == 65536 * 2 * 3 and float(peak) > 0
+assert bench.device_step("cpu", n_tiles=2, tile_bytes=2048)["runs"] == 1
+assert bench.e2e_step("cpu", n_tiles=2, tile_bytes=2048)["runs"] == 1
+with contextlib.redirect_stdout(io.StringIO()):
+    dryrun_multichip(2, "cpu")
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "dsd2dxd_tpu"))
 assert not loaded, loaded
@@ -99,7 +112,8 @@ sys.argv = [sys.argv[1], "--help"]
 runpy.run_module(sys.argv[0], run_name="__main__")
 """
 
-HOST_TOOLS = ("compare_reference", "flacbench", "njadbench", "hostbudget")
+TOOLS = ("compare_reference", "flacbench", "njadbench", "hostbudget",
+         "bench")
 
 _JAX_PACKAGE_IMPORT = re.compile(
     r"^\s*(import\s+dsd2dxd_tpu\b(?!_)|from\s+dsd2dxd_tpu(\.|\s+import\b))",
@@ -118,13 +132,13 @@ def test_port_path_never_loads_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 44  # every module was imported
+    assert int(res.stdout.strip()) >= 46  # every module was imported
 
 
-@pytest.mark.parametrize("tool", HOST_TOOLS)
+@pytest.mark.parametrize("tool", TOOLS)
 def test_host_tool_help_without_jax(tool):
-    """The host tools' entry points start with jax and the JAX package
-    refused."""
+    """The host tools' and the bench's entry points start with jax and the
+    JAX package refused."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     name = f"dsd2dxd_tpu_torch.tools.{tool}"
