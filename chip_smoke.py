@@ -208,6 +208,16 @@ one line per chain); any failed check exits non-zero:
     step does not take (matmul, then K2 "from z") beside K2t, and the
     smoke fails if that route is the faster; and the whole step against
     its plain path.
+15. lightspeed: ``python -m dsd2dxd_tpu_torch.tools.lightspeed --calibrate
+    --measure`` in this process (budget 90 s): the model's fits on
+    synth_chain ladders with their largest residuals, then all 22 cells
+    of the rate matrix through the engine's own steps (K1a-K1c, K1e +
+    K2t) at the engine's tile, 24-bit TPDF, one row each: measured xRT,
+    the model, the chain-only bound and its share, the no-FMA floor, the
+    HBM ceiling. Fails on a missing cell, a share of the bound above 100
+    % (a miscounted term) or a cell the timing phase also times
+    (DSD64->352.8k, ->176.4k, ->192k, DSD128->88.2k, DSD256->88.2k,
+    ->96k) more than 25 % from its xRT there.
 
 Each phase line ends with the seconds since the start. At the end it
 checks that neither jax nor any module of the JAX package (dsd2dxd_tpu)
@@ -217,11 +227,13 @@ or tool run that drives each, named in the row's launches_from: K2 "from
 z", P1 and P2 are launched by their tools' timing loops and by no
 conversion; launches_sharded those of the sharded phase over cuda:0 x 4;
 launches_bench those of the bench phase's subprocesses, warm runs included;
+launches_lightspeed those of the lightspeed phase (÷128: its ÷128 cell's);
 max_abs_err in LSB of the output depth, absolute for f32; bound_ms the
 largest of the bytes over 3.35 TB/s, the f32 operations over 67 TFLOP/s
-and, for K2's dithered epilogues, the Philox calls' 18 multiplies (or
+and, for the dithered epilogues, the Philox calls' 18 multiplies (or
 their 18 xors: the two kinds run on separate pipes) over 16.7 TOP/s,
-from this run's inputs; library_ms the one PyTorch call
+from this run's inputs (tools/lightspeed.py's k1_work, k2t_work and
+bound_ms); library_ms the one PyTorch call
 of the same function where there is one -- P1's noop, dma, halo0, contig
 and bspec; for K2t the matmul that computes its tail -- else null), and
 the last line {"ok": true, "device": {...}}.
@@ -439,23 +451,6 @@ def flac_meta(path: Path):
         i += 4 + n
         if head & 0x80:
             return info, comments, pictures
-
-
-def bound(nbytes: float, flops: float, int_ops: float = 0.0):
-    """(ms, "bytes" or "operations"): the least time the card could take
-    to move `nbytes` (each input read once, each output written once), do
-    `flops` f32 operations and do `int_ops` 32-bit integer operations
-    (the largest of the three times; they overlap on a card), at an H100
-    SXM's published peaks (dsd2dxd_tpu_torch/tools/__init__.py)."""
-    from dsd2dxd_tpu_torch.tools import (
-        PEAK_BYTES_PER_S,
-        PEAK_F32_FLOPS,
-        PEAK_INT32_OPS,
-    )
-
-    tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    to = max(flops / PEAK_F32_FLOPS, int_ops / PEAK_INT32_OPS) * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def p1_library_call(x, mode: str, g, rows: int, n_blocks: int):
@@ -1039,6 +1034,67 @@ def bench_phase(label: str) -> dict:
           f"{ {k: v for k, v in dry.items() if v} }; bench "
           f"launches {launches}; phase wall "
           f"{time.perf_counter() - t_phase:.1f} s; card [{label}]")
+    return launches
+
+
+LIGHTSPEED_BUDGET_S = 90
+# the timing phase's cells (24-bit TPDF; the 48k ones as whole steps)
+TIMING_CELLS = ("DSD64->352800", "DSD64->176400", "DSD128->88200",
+                "DSD256->88200", "DSD64->192000", "DSD256->96000")
+TIMING_XRT_TOL = 0.25
+
+
+def lightspeed_phase(timing_xrt: dict, label: str) -> dict:
+    """Phase 15: ``lightspeed --calibrate --measure`` in this process: the
+    fits and the 22-row table on earlier lines; fails on a missing cell,
+    a share of the bound above 100 %, or a timing-phase cell (`timing_xrt`,
+    {"DSD64->352800": xRT, ...}) more than 25 % from the timing phase's
+    xRT.
+    Returns the phase's launches by kernel row (÷128: the K1c launches of
+    the measured ÷128 cell)."""
+    from dsd2dxd_tpu_torch.ops import fused
+    from dsd2dxd_tpu_torch.tools import lightspeed
+
+    t_phase = time.perf_counter()
+    fused.reset_launch_counts()
+    out = lightspeed.main(["--calibrate", "--measure"])
+    launches = dict(fused.MODE_LAUNCHES)
+    rows = {r["cell"]: r for r in out["rows"]}
+    want = {f"{rate.name}->{hz}" for rate, outs in lightspeed.CELLS
+            for hz in outs}
+    check(len(want) == 22 and set(rows) == want,
+          f"lightspeed measured {sorted(rows)}, want the 22 cells")
+    over = {c: r["share_bound"] for c, r in rows.items()
+            if not 0 < r["share_bound"] <= 1}
+    check(not over, f"lightspeed: a share of the bound outside (0, 100 %] "
+          f"is a miscounted term: {over}")
+    launches["÷128"] = sum(r["device"]["launches"].get("K1c", 0)
+                           for r in rows.values()
+                           if r["decimation"] == 128 and not r["rational"])
+    check(all(launches[m] > 0 for m in ("K1a", "K1b", "K1c", "÷128", "K1e",
+                                        "K2t")),
+          f"lightspeed: a kernel of the path was not launched: {launches}")
+    agree = []
+    for cell in TIMING_CELLS:
+        got, ref = rows[cell]["measured"], timing_xrt[cell]
+        agree.append(f"{cell} {got:.0f} vs {ref:.0f} ({got / ref:.3f})")
+        check(abs(got / ref - 1) <= TIMING_XRT_TOL,
+              f"lightspeed {cell}: {got:.0f} xRT at the engine's tile, the "
+              f"timing phase {ref:.0f} at 16 MiB/ch: more than "
+              f"{TIMING_XRT_TOL:.0%} apart")
+    fits = out["fits"]
+    wall = time.perf_counter() - t_phase
+    phase("lightspeed", f"22 cells through the engine's steps at its tile, "
+          f"24-bit TPDF: share of the bound "
+          f"{min(r['share_bound'] for r in rows.values()):.1%}-"
+          f"{max(r['share_bound'] for r in rows.values()):.1%}; against the "
+          f"timing phase (xRT here vs there): {'; '.join(agree)}; fits' "
+          f"largest residuals " + ", ".join(
+              f"{c} {fits[c]['max_resid_pct']:.1f} %"
+              for c in lightspeed.K1_CLASSES)
+          + f"; launches { {k: v for k, v in launches.items() if v} }; "
+          f"phase wall {wall:.1f} s (budget {LIGHTSPEED_BUDGET_S} s); "
+          f"card [{label}]")
     return launches
 
 
@@ -2291,7 +2347,8 @@ def main() -> int:
 
     # 13. probes: P1 (dmabench) and P2 (floorstrip) ---------------------------
     from dsd2dxd_tpu_torch import tools
-    from dsd2dxd_tpu_torch.tools import PHILOX_INT_OPS, dmabench, floorstrip
+    from dsd2dxd_tpu_torch.tools import dmabench, floorstrip
+    from dsd2dxd_tpu_torch.tools.lightspeed import bound_ms, k1_work, k2t_work
 
     def ev_ms(fn, n) -> float:
         """Mean ms of fn(i), i < n, between two CUDA events (warmed)."""
@@ -2517,8 +2574,8 @@ def main() -> int:
     probe_rows = []
     g = p1[2048]["geometry"]
     for m in dmabench.KERNEL_MODES:
-        b_ms, b_by = bound(
-            dmabench.bound_bytes(m, g, 2, p1[2048]["n_blocks"]), 0)
+        b_ms, b_by = bound_ms(
+            (dmabench.bound_bytes(m, g, 2, p1[2048]["n_blocks"]), 0, 0))
         probe_rows.append({
             "name": f"P1 dma_probe ({m}; block 2048 B/ch, halo "
                     f"{g.halo_words * 4} B)",
@@ -2532,8 +2589,8 @@ def main() -> int:
             "library_ms": p1_lib.get(m)})
     for cname, (chain_p, tile_p) in p2_in.items():
         for kname in floorstrip.KERNELS:
-            b_ms, b_by = bound(*floorstrip.rung_work(kname, chain_p, tile_p,
-                                                     2))
+            b_ms, b_by = bound_ms(floorstrip.rung_work(kname, chain_p,
+                                                        tile_p, 2))
             probe_rows.append({
                 "name": f"P2 probe_step ({kname}; {cname}, block_out "
                         f"{p2[cname]['block_out']}; K1's body cut short)",
@@ -2569,6 +2626,8 @@ def main() -> int:
         return ev0.elapsed_time(ev1) / len(xs)
 
     timed, bounds, library_ms = {}, {}, {}
+    # the timing phase's xRT per 24-bit TPDF cell, for the lightspeed phase
+    timing_xrt = {}
     for mode, name, key, bits in [
             ("K1a", "÷8 E DSD64->352.8k 24-bit", (E, DsdRate.DSD64, 352800), 24),
             ("K1b", "÷16 E DSD64->176.4k 24-bit", (E, DsdRate.DSD64, 176400), 24),
@@ -2592,11 +2651,12 @@ def main() -> int:
         k_ms = sum(runs["kernel"]) / 2
         p_ms = sum(runs["plain"]) / 2
         timed[mode] = (k_ms, p_ms)
+        if bits == 24:
+            timing_xrt[f"{key[1].name}->{key[2]}"] = (
+                tile * 8 / key[1].hz / k_ms * 1e3)
         frames = tile * 8 // fused.decimation(chain)
-        bounds[mode] = bound(
-            2 * (tile + fused.chain_halo_bytes(chain))
-            + 2 * frames * (2 if bits == 16 else 3),
-            floorstrip.cascade_flops(chain) * frames * 2 + 4 * 2 * frames)
+        bounds[mode] = bound_ms(k1_work(chain, frames, 2, bits, T,
+                                        fused.chain_halo_bytes(chain)))
         audio = tile * 8 / key[1].hz
         phase("timing", f"{name} TPDF, 16 MiB/ch stereo tile ({audio:.2f} s "
               f"audio): kernel {k_ms:.3f} ms ({audio / k_ms * 1e3:.0f} "
@@ -2690,44 +2750,34 @@ def main() -> int:
         step_k, step_p, step_runs = alternate(
             plain_step, lambda i: step(xs[i], (halo, hist), keys[i]), n)
         audio = tile * 8 / key[1].hz
+        timing_xrt[f"{key[1].name}->{key[2]}"] = audio / step_k * 1e3
         n_base = tile * 8 // rp.r_head
         n_out = n_base * 160 // 147
         n_taps = table.n_taps
-        # bytes: each sample in once (and the history, the table), each wire
-        # byte out once; f32 operations: gain, scale, dither sum, round,
-        # clip per sample, and one product and one sum per band entry
-        b_none = bound(2 * n_out * (4 + 3), 5 * 2 * n_out)
-        b_tpdf = bound(2 * n_out * (4 + 3), 5 * 2 * n_out,
-                       PHILOX_INT_OPS * 2 * n_out)
-        b_fpd = bound(2 * n_out * (4 + 4), 5 * 2 * n_out,
-                      PHILOX_INT_OPS * 2 * n_out)
-        b_16 = bound(2 * n_out * (4 + 2), 5 * 2 * n_out,
-                     PHILOX_INT_OPS * 2 * n_out)
-        in_bytes = 2 * (n_base + 147) * 4 + table.coefs.numel() * 4 + 160 * 4
-        bt_none = bound(in_bytes + 2 * n_out * 3,
-                        (2 * n_taps + 5) * 2 * n_out)
-        bt_tpdf = bound(in_bytes + 2 * n_out * 3,
-                        (2 * n_taps + 5) * 2 * n_out,
-                        PHILOX_INT_OPS * 2 * n_out)
-        bt_fpd = bound(in_bytes + 2 * n_out * 4,
-                       (2 * n_taps + 5) * 2 * n_out,
-                       PHILOX_INT_OPS * 2 * n_out)
-        # the tail alone: samples in, samples out; the dense product does
-        # 2 * (147 + nhist) * 160 operations per band block, the band
-        # needs 2 * T * 160
-        blocks = 2 * (n_base // 147)
-        b_tail_dense = bound(2 * (n_base + n_out) * 4,
-                             2 * rp.band.shape[1] * 160 * blocks)
-        b_tail_need = bound(2 * (n_base + n_out) * 4,
-                            2 * n_taps * 160 * blocks)
+        # K2 "from z" reads the tail's samples (T = 0); K2t the head's, its
+        # history and its table (lightspeed.k2t_work)
+        b_none, b_tpdf, b_fpd, b_16 = (
+            bound_ms(k2t_work(n_out, 0, 2, bits, dither, in_values=n_out))
+            for bits, dither in ((24, N), (24, T), (32, F), (16, T)))
+        table_bytes = (table.coefs.numel() + table.offs.numel()) * 4
+        bt_none, bt_tpdf, bt_fpd = (
+            bound_ms(k2t_work(n_out, n_taps, 2, bits, dither,
+                              in_values=n_base + rp.p_in,
+                              table_bytes=table_bytes))
+            for bits, dither in ((24, N), (24, T), (32, F)))
+        # the tail alone: the dense product's 147 + nhist entries per
+        # phase, or the band's T
+        b_tail_dense, b_tail_need = (
+            bound_ms(k2t_work(n_out, taps_n, 2, None, in_values=n_base))
+            for taps_n in (rp.band.shape[1], n_taps))
         if key[1] is DsdRate.DSD64:
             timed["K1e"] = (head_k, head_p)
             timed["K2"] = fin[(24, T)][:2]
             timed["K2t"] = fused_t[(24, T)][:2]
             library_ms["K2t"] = tail_ms
-            bounds["K1e"] = bound(
-                2 * (tile + fused.chain_halo_bytes(head)) + 2 * n_base * 4,
-                floorstrip.cascade_flops(head) * n_base * 2)
+            bounds["K1e"] = bound_ms(k1_work(
+                head, n_base, 2, None,
+                halo_bytes=fused.chain_halo_bytes(head)))
             bounds["K2"] = b_tpdf
             bounds["K2t"] = bt_tpdf
 
@@ -2760,6 +2810,9 @@ def main() -> int:
               f"{step_runs['kernel']}) vs plain path {step_p:.3f} ms; "
               f"card [{label}]")
         del xs, ys, zs
+
+    # 15. lightspeed: the device rate matrix of all 22 cells -----------------
+    ls_launches = lightspeed_phase(timing_xrt, label)
 
     check("jax" not in sys.modules, "jax was loaded")
     jax_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "dsd2dxd_tpu")
@@ -2808,6 +2861,7 @@ def main() -> int:
                              if m in sharded_launches else "")),
         "launches_sharded": sharded_launches.get(m, 0),
         "launches_bench": bench_launches.get(m, 0),
+        "launches_lightspeed": ls_launches.get(m, 0),
         "max_abs_err": max_err[m],
         "ms": timed[m][0], "plain_ms": timed[m][1],
         "bound_ms": bounds[m][0], "bound_by": bounds[m][1],

@@ -72,6 +72,10 @@ BLOCK_OUT = {8: 2048, 16: 1024, 32: 512, 64: 320, 128: 128}
 BLOCK_BITS = 1 << 14
 S0_VEC = 4            # K1: outputs per thread of stage 0
 GROUP = 4             # K1: stage-0 taps per table
+# the stage-0 group counts and ÷2 tap counts that csrc/decim_body.cuh's
+# switches unroll (the cached chains'); others take its generic loops
+STAGE0_CASES = (1, 4, 5, 6, 24)
+FIR2_CASES = (2, 16, 18, 22, 48, 56, 58, 72, 78)
 _DITHER_CODE = {DitherType.NONE: 0, DitherType.TPDF: 1,
                 DitherType.RECTANGULAR: 2, DitherType.FPD: 3}
 _INT_DITHERS = (DitherType.NONE, DitherType.TPDF, DitherType.RECTANGULAR)
@@ -125,6 +129,12 @@ def kernel_modes(chain: Sequence[Stage], bit_depth: int) -> tuple[str, ...]:
     if bit_depth != 24:
         modes.append("K1d")
     return tuple(modes)
+
+
+def unrolled(chain: Sequence[Stage]) -> bool:
+    """K1 runs every stage of `chain` through an unrolled case."""
+    return (-(-chain[0].n_taps // GROUP) in STAGE0_CASES
+            and all(s.n_taps in FIR2_CASES for s in chain[1:]))
 
 
 def block_out_for(chain: Sequence[Stage]) -> int:

@@ -121,7 +121,21 @@ def tail_table(band: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return offs, np.ascontiguousarray(coefs, dtype=np.float32)
 
 
+# rational_plan's plans by their chain's stages (L, M, taps): a stream asks
+# for its plan three times (the tile, the step, the state)
+_PLANS: dict = {}
+
+
 def rational_plan(chain: Sequence[Stage]) -> RationalPlan:
+    """The chain's plan, built once per process."""
+    key = tuple((s.L, s.M, np.asarray(s.taps).tobytes()) for s in chain)
+    rp = _PLANS.get(key)
+    if rp is None:
+        rp = _PLANS.setdefault(key, _build_rational_plan(chain))
+    return rp
+
+
+def _build_rational_plan(chain: Sequence[Stage]) -> RationalPlan:
     n_head = rational_head_len(chain)
     if n_head is None:
         raise ConfigError("not a 48k-family chain: want a pure ÷2^k head "

@@ -32,7 +32,7 @@ DSD512_HZ = 22_579_200
 # beyond the H100's 50 MB L2, so no run reads its input from the cache
 STAGED_TILES = 8
 # an H100 SXM's published peaks, for the least time of a kernel's work
-# (floorstrip.floor_ms, chip_smoke.py's bound()): HBM3 bytes/s, f32 FLOP/s
+# (tools/lightspeed.py's bounds): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores (an FMA counted as two)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -68,9 +68,12 @@ HOLD_TRIES = 4
 def synth_chain(scale: float, n_stages: int = len(REAL_TAPS)):
     """Pure /2^n chain with REAL_TAPS[:n] counts scaled by `scale` (min
     2 taps — the kernel needs at least one term per phase). Taps are
-    normalized hann windows: numerically tame, gain ~1."""
+    normalized hann windows: numerically tame, gain ~1. Deeper than
+    REAL_TAPS (÷128 for n = 7), more stages of REAL_TAPS[0] taps go in
+    front, as the Equiripple ÷128 chain (DSD256 -> 88.2k) has them."""
+    extra = max(0, n_stages - len(REAL_TAPS))
     stages = []
-    for n in REAL_TAPS[:n_stages]:
+    for n in (REAL_TAPS[0],) * extra + REAL_TAPS[:n_stages]:
         m = max(2, int(round(n * scale)) & ~1)  # even, >= 2
         h = np.hanning(m + 2)[1:-1]
         h = (h / h.sum()).astype(np.float64)

@@ -47,7 +47,8 @@ rung before, its floor and its share of it. The floor is the largest of
 the bytes (tile and halo in once, the rung's output out once) over 3.35
 TB/s, the cascade's f32 operations over 67 TFLOP/s times two (bit-equality
 forbids FMA, so a product and its sum are two instructions) and, at TPDF,
-18 integer operations per Philox call over 16.75 TOP/s.
+18 integer operations per Philox call over 16.75 TOP/s
+(``lightspeed.k1_work`` and ``bound_ms``).
 """
 
 from __future__ import annotations
@@ -64,21 +65,14 @@ import numpy as np
 import torch
 
 from dsd2dxd_tpu_torch import kernels
-from dsd2dxd_tpu_torch.containers.pack import bytes_per_sample
 from dsd2dxd_tpu_torch.filters.design import Stage, get_chain
 from dsd2dxd_tpu_torch.formats.dsd_types import DitherType, DsdRate, FilterType
 from dsd2dxd_tpu_torch.ops import fused, philox
+from dsd2dxd_tpu_torch.ops.fused import FIR2_CASES, STAGE0_CASES
 from dsd2dxd_tpu_torch.ops.plan import tree_sum
 from dsd2dxd_tpu_torch.ops.resample import StepConfig
-from dsd2dxd_tpu_torch.tools import (
-    PEAK_BYTES_PER_S,
-    PEAK_F32_FLOPS,
-    PEAK_INT32_OPS,
-    PHILOX_INT_OPS,
-    STAGED_TILES,
-    round_robin,
-    synth_chain,
-)
+from dsd2dxd_tpu_torch.tools import STAGED_TILES, round_robin, synth_chain
+from dsd2dxd_tpu_torch.tools.lightspeed import bound_ms, cascade_flops, k1_work
 from dsd2dxd_tpu_torch.utils.device import card_label, resolve_device
 from dsd2dxd_tpu_torch.utils.errors import ConfigError
 
@@ -94,10 +88,6 @@ CHAINS = {"synth": lambda: synth_chain(0.0),
           "config1": lambda: get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD64,
                                        352800)}
 CHANNELS = 2
-# the counts decim_body.cuh's switches unroll: stage-0 groups of 4 taps,
-# and the ÷2 stages' taps (others take the generic loops)
-STAGE0_CASES = (1, 4, 5, 6, 24)
-FIR2_CASES = (2, 16, 18, 22, 48, 56, 58, 72, 78)
 _NO_PEAK = ("dma", "unpack", "cas0a")
 _CHUNK_BLOCKS = 512  # blocks the plain versions take at once
 
@@ -360,46 +350,27 @@ def make_probe_step(chain: Sequence[Stage], cfg: StepConfig, rung: str,
     return step
 
 
-def cascade_flops(chain: Sequence[Stage],
-                  n_stages: Optional[int] = None) -> int:
-    """f32 operations per output frame and channel of a ÷R cascade's
-    first n_stages stages (all for None): each stage's outputs per frame
-    times its taps, one product and one sum each."""
-    r, cum, macs = 1, 1, 0
-    for s in chain:
-        r *= s.M
-    for s in chain[:n_stages]:
-        cum *= s.M
-        macs += s.n_taps * (r // cum)
-    return 2 * macs
-
-
 def rung_work(row: str, chain: Sequence[Stage], tile_bytes: int,
               channels: int) -> tuple[int, int, int]:
     """(bytes, f32 operations, integer operations) of a ladder row on one
-    tile: the tile and halo in once and the row's output out once (f32 or
-    int32, full's 24-bit wire bytes); the cascade's products and sums
-    (unpack: stage 0's), plus 4 per sample for the epilogue; at TPDF one
-    Philox call per sample."""
-    frames = channels * tile_bytes * 8 // fused.decimation(chain)
-    nbytes = (channels * (tile_bytes + fused.chain_halo_bytes(chain))
-              + frames * (bytes_per_sample(24) if row == "full" else 4))
-    flops = {"dma": 0, "fan": 0,
-             "unpack": cascade_flops(chain, 1) * frames}.get(
-        row, cascade_flops(chain) * frames)
-    if row.startswith("quant") or row == "full":
-        flops += 4 * frames
-    int_ops = PHILOX_INT_OPS * frames if row in ("quant TPDF", "full") else 0
+    tile, ``lightspeed.k1_work``'s count: the tile and halo in once and the
+    row's output out once (f32 or int32, full's 24-bit wire bytes); the
+    cascade's products and sums (dma none, unpack stage 0's), plus the
+    epilogue's for quant and full; at TPDF one Philox call per sample."""
+    frames = tile_bytes * 8 // fused.decimation(chain)
+    halo = fused.chain_halo_bytes(chain)
+    if row == "full":
+        return k1_work(chain, frames, channels, 24, DitherType.TPDF, halo)
+    quant = row.startswith("quant")
+    nbytes, flops, int_ops = k1_work(
+        chain, frames, channels, 24 if quant else None,
+        DitherType.TPDF if row == "quant TPDF" else DitherType.NONE, halo,
+        out_bytes=4)
+    if row in ("dma", "fan"):
+        flops = 0
+    elif row == "unpack":
+        flops = cascade_flops(chain, 1) * frames * channels
     return nbytes, flops, int_ops
-
-
-def floor_ms(work: tuple[int, int, int]) -> tuple[float, str]:
-    """(ms, "bytes" or "operations"): the least time of `work` on the
-    card, the f32 operations at half the FMA rate (no FMA)."""
-    nbytes, flops, int_ops = work
-    tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    to = max(2 * flops / PEAK_F32_FLOPS, int_ops / PEAK_INT32_OPS) * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def probe_config(tile_mib: float, block_out: Optional[int] = None,
@@ -469,7 +440,8 @@ def main(argv=None) -> dict:
 
     times = round_robin({r: run(r) for r in rows}, args.reps)
     med = {r: statistics.median(times[r]) / STAGED_TILES for r in rows}
-    floor = {r: floor_ms(rung_work(r, chain, tile, CHANNELS)) for r in rows}
+    floor = {r: bound_ms(rung_work(r, chain, tile, CHANNELS), fma=False)
+             for r in rows}
     full_max = max(times["full"]) / STAGED_TILES
     print(f"{args.chain} (÷{fused.decimation(chain)}, taps "
           f"{[s.n_taps for s in chain]}), block_out={bo}, tile={tile} B/ch x "

@@ -734,6 +734,22 @@ def test_bench_step_modes_on_card(cuda_device, mode):
     assert fused.MODE_LAUNCHES["K1a"] == 2 * res["runs"]
 
 
+def test_lightspeed_measure_on_card(cuda_device, capsys):
+    """tools/lightspeed.py --measure on a 44.1k and a 48k cell, through
+    the engine's steps (K1a; K1e + K2t): a share of the chain-only bound
+    in (0, 100 %], the path's kernels launched."""
+    from dsd2dxd_tpu_torch.tools import lightspeed
+
+    out = lightspeed.main(["--measure", "--reps", "3", "--cells",
+                           "DSD64:352800,DSD64:192000"])
+    rows = out["rows"]
+    assert [r["cell"] for r in rows] == ["DSD64->352800", "DSD64->192000"]
+    for r in rows:
+        assert 0 < r["share_bound"] <= 1, r
+    assert rows[0]["device"]["launches"].get("K1a", 0) > 0
+    assert {"K1e", "K2t"} <= set(rows[1]["device"]["launches"])
+
+
 def test_launch_refuses_another_device_index(cuda_device):
     """The C entry refuses a device index other than its tensors' (here
     device_count(), which no card has), and the launch is not counted."""

@@ -45,6 +45,7 @@ assert {"dsd2dxd_tpu_torch.parallel.sharded", "dsd2dxd_tpu_torch.ops.dsm",
         "dsd2dxd_tpu_torch.tools.njadbench",
         "dsd2dxd_tpu_torch.tools.hostbudget",
         "dsd2dxd_tpu_torch.tools.bench",
+        "dsd2dxd_tpu_torch.tools.lightspeed",
         "dsd2dxd_tpu_torch.entry"} <= set(names)
 from dsd2dxd_tpu_torch import DitherType, DsdRate, FilterType
 from dsd2dxd_tpu_torch.cli.dsd2dxd import run
@@ -113,7 +114,7 @@ runpy.run_module(sys.argv[0], run_name="__main__")
 """
 
 TOOLS = ("compare_reference", "flacbench", "njadbench", "hostbudget",
-         "bench")
+         "bench", "lightspeed")
 
 _JAX_PACKAGE_IMPORT = re.compile(
     r"^\s*(import\s+dsd2dxd_tpu\b(?!_)|from\s+dsd2dxd_tpu(\.|\s+import\b))",
@@ -137,8 +138,8 @@ def test_port_path_never_loads_jax():
 
 @pytest.mark.parametrize("tool", TOOLS)
 def test_host_tool_help_without_jax(tool):
-    """The host tools' and the bench's entry points start with jax and the
-    JAX package refused."""
+    """The host tools', the bench's and lightspeed's entry points start
+    with jax and the JAX package refused."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     name = f"dsd2dxd_tpu_torch.tools.{tool}"
