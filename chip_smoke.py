@@ -153,10 +153,10 @@ one line per chain); any failed check exits non-zero:
     one K1e and one K2t) kernel event per tile under the kernel's name;
     drain.write on another thread than read. Then two streams at once
     (config 1's .dsf and a link to it in one CLI call, on its worker
-    threads), untraced and traced: exit 0, one or two traces that parse,
-    every output's sha256 the untraced call's. Then one traced sharded
-    run of config 1 (DSD2DXD_SHARD_STREAM=1 over cuda:0 x 4), the same
-    split and checks. Fails, saying so, where torch's profiler cannot
+    threads), untraced and traced: exit 0, one trace holding both
+    streams, every output's sha256 the untraced call's. Then one traced
+    sharded run of config 1 (DSD2DXD_SHARD_STREAM=1 over cuda:0 x 4), the
+    same split and checks. Fails, saying so, where torch's profiler cannot
     record every thread (profile_all_threads).
 12e. bench: `python -m dsd2dxd_tpu_torch.tools.bench` (the port of
     bench.py) in a subprocess per mode, about 60 s: the device step
@@ -748,8 +748,8 @@ def profile_phase(tmp: Path, cases: list, shard_devs: list,
     wanted kernel events under their own names, drain.write on another
     thread than read, and the untraced output. Then the first case with
     a second stream beside it (one CLI call, its worker threads),
-    untraced and traced: exit 0, one or two traces, the same outputs; and
-    one sharded run of the first case over `shard_devs`."""
+    untraced and traced: exit 0, one trace with both streams, the same
+    outputs; and one sharded run of the first case over `shard_devs`."""
     import statistics
 
     import torch
@@ -844,9 +844,8 @@ def profile_phase(tmp: Path, cases: list, shard_devs: list,
                   f"one's; card [{label}]")
 
         # two streams at once on the CLI's worker threads, untraced and
-        # traced: one trace session per process, so one of them converts
-        # untraced (its spans in the open trace); nothing raises and no
-        # output changes
+        # traced: the batch's one shared session writes one trace with
+        # both streams; nothing raises and no output changes
         name, argv, stdin, out_path, sec, kernels, want_sha = cases[0]
         src = Path(argv[-1])
         twin = src.with_name(f"{src.stem}_twin{src.suffix}")
@@ -878,7 +877,7 @@ def profile_phase(tmp: Path, cases: list, shard_devs: list,
         check(shas[0] == shas[1] and shas[0][0] == want_sha,
               f"profile: two streams at once, traced outputs {shas[1]}, "
               f"untraced {shas[0]}, {name} alone {want_sha}")
-        check(1 <= len(new) <= 2, f"profile: two streams at once wrote "
+        check(len(new) == 1, f"profile: two streams at once wrote "
               f"{len(new)} traces")
         streams = []
         for path in new:
@@ -886,8 +885,8 @@ def profile_phase(tmp: Path, cases: list, shard_devs: list,
             streams.append(sum(1 for e in events
                                if e.get("cat") == "user_annotation"
                                and e.get("name") == SPAN + "stream"))
-        check(all(streams), f"profile: a trace of two streams holds no "
-              f"stream span ({streams})")
+        check(streams == [2], f"profile: the trace of two streams holds "
+              f"{streams} stream spans")
         phase("profile", f"two streams at once ({name}'s .dsf and a link "
               f"to it in one CLI call, on its worker threads): exit 0 "
               f"untraced and traced, {len(new)} trace(s) holding "

@@ -47,6 +47,7 @@ from dsd2dxd_tpu_torch.pipeline.engine import Converter
 from dsd2dxd_tpu_torch.utils.device import batch_devices
 from dsd2dxd_tpu_torch.utils.errors import Dsd2DxdError
 from dsd2dxd_tpu_torch.utils.logging import init_logging
+from dsd2dxd_tpu_torch.utils.trace import stream_trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -197,6 +198,41 @@ def convert_file(path: Path, args, enums, base_dir: Path,
     return conv
 
 
+def convert_files(files: list, args, enums, base_dir: Path,
+                  bars: MultiProgress, device=None) -> None:
+    """The batch of files on the worker pool, fail-fast: the first error
+    cancels the files not yet started and is raised."""
+    writes_stdout = enums["output"] is OutputType.STDOUT
+    cancel = threading.Event()
+    errors: list[BaseException] = []
+    # raw PCM to stdout must not interleave across files
+    workers = 1 if writes_stdout else min(worker_count(), len(files))
+    # file-level data parallelism: round-robin the batch over the
+    # devices, one pipeline per device, with enough workers to
+    # feed every device; with one device nothing changes
+    devices = [device] if device is not None else batch_devices()
+    if len(devices) > 1 and len(files) > 1 and not writes_stdout:
+        workers = min(max(workers, len(devices)), len(files))
+    else:
+        devices = [device]
+
+    def job(item) -> None:
+        idx, path = item
+        if cancel.is_set():
+            return
+        try:
+            convert_file(path, args, enums, base_dir, bars, cancel,
+                         device=devices[idx % len(devices)])
+        except BaseException as e:  # noqa: BLE001 - fail-fast batch
+            errors.append(e)
+            cancel.set()
+
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        list(pool.map(job, enumerate(files)))
+    if errors:
+        raise errors[0]
+
+
 def run(argv=None, device=None) -> int:
     """CLI body; returns the exit code. A named `device` runs every input
     there (the tests' "cpu"); None spreads a batch of files over
@@ -226,39 +262,15 @@ def run(argv=None, device=None) -> int:
 
     n_inputs = 0
     try:
-        if use_stdin:
-            convert_stdin(args, enums, base_dir, device)
-            n_inputs += 1
-        if files:
-            cancel = threading.Event()
-            errors: list[BaseException] = []
-            # raw PCM to stdout must not interleave across files
-            workers = 1 if writes_stdout else min(worker_count(), len(files))
-            # file-level data parallelism: round-robin the batch over the
-            # devices, one pipeline per device, with enough workers to
-            # feed every device; with one device nothing changes
-            devices = [device] if device is not None else batch_devices()
-            if len(devices) > 1 and len(files) > 1 and not writes_stdout:
-                workers = min(max(workers, len(devices)), len(files))
-            else:
-                devices = [device]
-
-            def job(item) -> None:
-                idx, path = item
-                if cancel.is_set():
-                    return
-                try:
-                    convert_file(path, args, enums, base_dir, bars, cancel,
-                                 device=devices[idx % len(devices)])
-                except BaseException as e:  # noqa: BLE001 - fail-fast batch
-                    errors.append(e)
-                    cancel.set()
-
-            with ThreadPoolExecutor(max_workers=workers) as pool:
-                list(pool.map(job, enumerate(files)))
-            if errors:
-                raise errors[0]
-            n_inputs += len(files)
+        # traced, the batch holds one profiler session from stdin to the
+        # pool's last file: one trace with every worker's spans
+        with stream_trace("batch"):
+            if use_stdin:
+                convert_stdin(args, enums, base_dir, device)
+                n_inputs += 1
+            if files:
+                convert_files(files, args, enums, base_dir, bars, device)
+                n_inputs += len(files)
         if n_inputs == 0:
             log.warning("No DSD inputs found")
     except Exception as e:  # noqa: BLE001 - every failure is [ERROR] + exit 1

@@ -19,6 +19,7 @@ from typing import BinaryIO, Optional
 import numpy as np
 
 from dsd2dxd_tpu_torch.formats.dsd_types import DsdRate, Endianness, FmtType
+from dsd2dxd_tpu_torch.utils.trace import span
 
 # 256-entry bit-reversal table: LSB-first byte -> MSB-first byte.
 _BITREV = np.array(
@@ -94,7 +95,8 @@ class DsdSource:
 
     def _normalize(self, planes: np.ndarray) -> np.ndarray:
         if self.info.endianness is Endianness.LSB_FIRST:
-            planes = reverse_bits(planes)
+            with span("dsd2dxd.read.bitrev"):
+                planes = reverse_bits(planes)
         return planes
 
     # -- public -------------------------------------------------------------
@@ -107,10 +109,11 @@ class DsdSource:
         if limit is not None:
             n_bytes_per_ch = min(n_bytes_per_ch, limit - self._out_bytes)
 
-        if self.info.fmt is FmtType.INTERLEAVED:
-            planes = self._read_interleaved(n_bytes_per_ch)
-        else:
-            planes = self._read_planar(n_bytes_per_ch)
+        with span("dsd2dxd.read.planes"):
+            if self.info.fmt is FmtType.INTERLEAVED:
+                planes = self._read_interleaved(n_bytes_per_ch)
+            else:
+                planes = self._read_planar(n_bytes_per_ch)
         if planes is None or planes.shape[1] == 0:
             return None
         self._out_bytes += planes.shape[1]
