@@ -5,9 +5,12 @@ interface over .dsf (planar blocks), .dff (byte-interleaved) and raw
 streams, normalizing everything to **per-channel byte planes in MSB-first
 bit order** — the canonical layout the device kernels consume.
 
-The normalization (deinterleave + bit-order reversal) is host-side numpy:
-at DSD stream rates (0.7–5.6 MB/s per stream, SURVEY.md §6) this is
-memory-bound and negligible next to the device pipeline.
+The reader sets the pace of a .dsf conversion on the card, so a read
+fetches the tile's bytes with one ``readinto`` into a buffer the source
+reuses, and ``native/src/dsfread.cc`` de-interleaves a planar run of
+blocks and bit-reverses an LSB-first tile in place: one C++ call each,
+outside the interpreter lock, in place of per-block Python and a numpy
+table gather.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import BinaryIO, Optional
 import numpy as np
 
 from dsd2dxd_tpu_torch.formats.dsd_types import DsdRate, Endianness, FmtType
+from dsd2dxd_tpu_torch.native.loader import load_reader
 from dsd2dxd_tpu_torch.utils.trace import span
 
 # 256-entry bit-reversal table: LSB-first byte -> MSB-first byte.
@@ -28,7 +32,8 @@ _BITREV = np.array(
 
 
 def reverse_bits(data: np.ndarray) -> np.ndarray:
-    """Reverse the bit order within each byte (LSB-first <-> MSB-first)."""
+    """Reverse the bit order within each byte (LSB-first <-> MSB-first).
+    The reader does it in place in C++; this copy serves ``write_dsf``."""
     return _BITREV[data]
 
 
@@ -66,8 +71,10 @@ class DsdSource:
     """Blockwise reader producing canonical (channels, n_bytes) uint8 planes,
     MSB-first bit order.
 
-    ``read(n_bytes_per_ch)`` returns an array with up to ``n_bytes_per_ch``
-    columns (less at EOF), or None at end of stream.
+    ``read(n_bytes_per_ch)`` returns a fresh array with up to
+    ``n_bytes_per_ch`` columns (less at EOF), or None at end of stream.
+    ``read_calls`` counts the stream reads made, ``read_tiles`` the arrays
+    returned.
     """
 
     def __init__(self, stream: BinaryIO, info: DsdStreamInfo,
@@ -80,29 +87,41 @@ class DsdSource:
         # Per-channel bytes already handed out (for sample-count trimming).
         self._out_bytes = 0
         self._pending: Optional[np.ndarray] = None  # leftover planar block tail
+        self._buf = np.empty(0, dtype=np.uint8)  # file bytes, reused
+        self.read_calls = 0
+        self.read_tiles = 0
 
     # -- internal helpers ---------------------------------------------------
 
-    def _read_raw(self, n: int) -> bytes:
+    def _read_raw(self, n: int) -> np.ndarray:
+        """Up to `n` payload bytes (fewer at the payload's end), read into
+        the reused buffer, which holds at least `n`: a view of it, valid
+        until the next read."""
+        if self._buf.size < n:
+            self._buf = np.empty(n, dtype=np.uint8)
         if self._remaining is not None:
             n = min(n, self._remaining)
-            if n <= 0:
-                return b""
-        buf = self._stream.read(n)
+        view = memoryview(self._buf)
+        got = 0
+        while got < n:
+            k = self._stream.readinto(view[got:n])
+            self.read_calls += 1
+            if not k:
+                break
+            got += k
         if self._remaining is not None:
-            self._remaining -= len(buf)
-        return buf
+            self._remaining -= got
+        return self._buf[:got]
 
     def _normalize(self, planes: np.ndarray) -> np.ndarray:
         if self.info.endianness is Endianness.LSB_FIRST:
             with span("dsd2dxd.read.bitrev"):
-                planes = reverse_bits(planes)
+                load_reader().bitrev(planes)
         return planes
 
     # -- public -------------------------------------------------------------
 
     def read(self, n_bytes_per_ch: int) -> Optional[np.ndarray]:
-        c = self.info.channels
         limit = self.info.data_bytes_per_channel
         if limit is not None and self._out_bytes >= limit:
             return None
@@ -117,53 +136,52 @@ class DsdSource:
         if planes is None or planes.shape[1] == 0:
             return None
         self._out_bytes += planes.shape[1]
+        self.read_tiles += 1
         return self._normalize(planes)
 
     def _read_interleaved(self, n_per_ch: int) -> Optional[np.ndarray]:
         c = self.info.channels
         raw = self._read_raw(n_per_ch * c)
-        if not raw:
-            return None
-        n = len(raw) // c * c  # drop trailing partial frame
+        n = raw.size // c * c  # drop trailing partial frame
         if n == 0:
             return None
-        arr = np.frombuffer(raw[:n], dtype=np.uint8)
-        return arr.reshape(-1, c).T.copy()
+        return raw[:n].reshape(-1, c).T.copy()
 
     def _read_planar(self, n_per_ch: int) -> Optional[np.ndarray]:
         c = self.info.channels
         bs = self.info.block_size
-        chunks: list[np.ndarray] = []
-        got = 0
-        if self._pending is not None:
-            take = min(n_per_ch, self._pending.shape[1])
-            chunks.append(self._pending[:, :take])
-            self._pending = (
-                self._pending[:, take:] if take < self._pending.shape[1] else None
-            )
-            got += take
-        while got < n_per_ch:
-            raw = self._read_raw(bs * c)
-            if not raw:
-                break
-            if len(raw) < bs * c:
-                # Short/truncated final super-block: pad with the DSD
-                # idle pattern, NOT zeros — 0x00 bits are full-scale
-                # negative DC, and when a truncated file's header still
-                # declares the full sample count the pad falls INSIDE
-                # the valid range, so zero-pad fabricated a loud DC
-                # thump that inflated peaks (engine tile padding already
-                # used idle for the same reason).
-                raw = raw + b"\x69" * (bs * c - len(raw))
-            block = np.frombuffer(raw, dtype=np.uint8).reshape(c, bs)
-            take = min(bs, n_per_ch - got)
-            chunks.append(block[:, :take])
-            if take < bs:
-                self._pending = block[:, take:].copy()
-            got += take
-        if got == 0:
+        if bs < 1:  # a raw stream's block size from the command line
             return None
-        return np.concatenate(chunks, axis=1)
+        pending = self._pending
+        take = 0 if pending is None else min(n_per_ch, pending.shape[1])
+        need = n_per_ch - take
+        # the run of whole blocks that covers the rest, in one read
+        raw = self._read_raw(-(-need // bs) * bs * c if need > 0 else 0)
+        blocks = -(-raw.size // (bs * c))
+        if raw.size < blocks * bs * c:
+            # Short/truncated final super-block: pad with the DSD
+            # idle pattern, NOT zeros — 0x00 bits are full-scale
+            # negative DC, and when a truncated file's header still
+            # declares the full sample count the pad falls INSIDE
+            # the valid range, so zero-pad fabricated a loud DC
+            # thump that inflated peaks (engine tile padding already
+            # used idle for the same reason).
+            self._buf[raw.size:blocks * bs * c] = 0x69
+            raw = self._buf[:blocks * bs * c]
+        cols = min(blocks * bs, need)
+        if take + cols == 0:
+            return None
+        out = np.empty((c, take + cols), dtype=np.uint8)
+        if take:
+            out[:, :take] = pending[:, :take]
+            self._pending = (
+                pending[:, take:] if take < pending.shape[1] else None
+            )
+        load_reader().planes(raw, blocks, bs, out, take)
+        if cols < blocks * bs:
+            last = raw[(blocks - 1) * bs * c:].reshape(c, bs)
+            self._pending = last[:, cols - (blocks - 1) * bs:].copy()
+        return out
 
 
 def raw_source(stream: BinaryIO, channels: int, rate: DsdRate, fmt: FmtType,

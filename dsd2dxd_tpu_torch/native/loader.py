@@ -1,15 +1,20 @@
-"""Build and bind the port's host C++ library: NJAD dither, the FLAC
-encoder and the delta-sigma modulator of the test signals
-(``native/src/njad.cc``, ``flac.cc``, ``dsdkit.cc``, byte copies of the
-JAX package's sources).
+"""Build and bind the port's two host C++ libraries.
 
-A copy of ``dsd2dxd_tpu/native/loader.py`` cut to the NJAD, FLAC and
-``dsdkit_dsm2_bits`` entry points. The library is built with g++ at first use -- never at
-import -- into ``dsd2dxd_tpu_torch/_build/`` (gitignored), named by a
-hash of the sources and the flags, compiled to a temporary file that is
-then renamed (a concurrent process never loads a half-written library).
-A failed build raises ConfigError with the compiler's output; nothing
-falls back to numpy.
+- The host library: NJAD dither, the FLAC encoder and the delta-sigma
+  modulator of the test signals (``native/src/njad.cc``, ``flac.cc``,
+  ``dsdkit.cc``, byte copies of the JAX package's sources), cut from
+  ``dsd2dxd_tpu/native/loader.py`` to the NJAD, FLAC and
+  ``dsdkit_dsm2_bits`` entry points.
+- The reader library (``native/src/dsfread.cc``, the port's own): the
+  .dsf reader's de-interleave and bit reversal, built apart so a
+  conversion that needs neither NJAD nor FLAC compiles one small file.
+
+Each is built with g++ at first use -- never at import -- into
+``dsd2dxd_tpu_torch/_build/`` (gitignored), named by a hash of its
+sources and the flags, compiled to a temporary file that is then renamed
+(a concurrent process never loads a half-written library). A failed
+build raises ConfigError with the compiler's output; nothing falls back
+to numpy.
 """
 
 from __future__ import annotations
@@ -29,44 +34,58 @@ _PKG = Path(__file__).resolve().parent
 SRC = _PKG / "src"
 BUILD_DIR = _PKG.parent / "_build"
 SOURCES = ("njad.cc", "flac.cc", "dsdkit.cc")
+READER_SOURCES = ("dsfread.cc",)
 GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
              "-fvisibility=hidden")
 
 _lock = threading.Lock()
 _lib = None
+_reader = None
 
 
-def _digest() -> str:
+def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    for name in SOURCES:
+    for name in sources:
         h.update(name.encode())
         h.update((SRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the sources (if this exact build is not there yet) and
-    return the library path."""
-    lib_path = BUILD_DIR / f"libdsd2dxd_torch_host_{_digest()}.so"
+def _build(stem: str, sources, what: str) -> Path:
+    """Compile `sources` into lib`stem`_<hash>.so (if this exact build is
+    not there yet) and return its path; `what` names the library in the
+    errors."""
+    lib_path = BUILD_DIR / f"lib{stem}_{_digest(sources)}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".so.tmp{os.getpid()}")
-    cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), *(str(SRC / s) for s in SOURCES)]
+    cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), *(str(SRC / s) for s in sources)]
     try:
         try:
             res = subprocess.run(cmd, capture_output=True, text=True)
         except OSError as e:
-            raise ConfigError(f"g++ could not run ({e}): NJAD dither, FLAC "
-                              f"output and the modulator need the host "
-                              f"library") from e
+            raise ConfigError(f"g++ could not run ({e}): {what} needs "
+                              f"it") from e
         if res.returncode:
-            raise ConfigError(f"g++ failed ({res.returncode}) building the "
-                              f"NJAD/FLAC/modulator host library:\n{res.stderr}")
+            raise ConfigError(f"g++ failed ({res.returncode}) building "
+                              f"{what}:\n{res.stderr}")
         tmp.replace(lib_path)
     finally:
         tmp.unlink(missing_ok=True)
     return lib_path
+
+
+def build() -> Path:
+    """The host library's path, compiled if needed."""
+    return _build("dsd2dxd_torch_host", SOURCES,
+                  "the NJAD/FLAC/modulator host library")
+
+
+def build_reader() -> Path:
+    """The reader library's path, compiled if needed."""
+    return _build("dsd2dxd_torch_dsfread", READER_SOURCES,
+                  "the .dsf reader library")
 
 
 class NativeLib:
@@ -187,3 +206,54 @@ def load() -> NativeLib:
         if _lib is None:
             _lib = NativeLib(ctypes.CDLL(str(build())))
         return _lib
+
+
+class ReaderLib:
+    """Typed wrapper over the C ABI of dsfread.cc. Both calls take
+    pointers, so each checks the sizes it passes first."""
+
+    def __init__(self, dll: ctypes.CDLL):
+        self._dll = dll
+        size = ctypes.c_size_t
+        dll.dsfread_planes.argtypes = [ctypes.c_void_p, size, size, size,
+                                       ctypes.c_void_p, size, size]
+        dll.dsfread_planes.restype = None
+        dll.dsfread_bitrev.argtypes = [ctypes.c_void_p, size]
+        dll.dsfread_bitrev.restype = None
+
+    def planes(self, raw: np.ndarray, blocks: int, block_size: int,
+               out: np.ndarray, col: int) -> None:
+        """De-interleave the `blocks` planar super-blocks at the start of
+        `raw` (file order: per block, one run of `block_size` bytes per
+        channel) into ``out[:, col:]``, a (channels, n) C-contiguous
+        uint8 array whose columns from `col` on the blocks cover."""
+        channels, width = out.shape
+        ncols = width - col
+        if not (raw.dtype == out.dtype == np.uint8
+                and raw.flags.c_contiguous and out.flags.c_contiguous
+                and raw.size >= blocks * channels * block_size
+                and 0 <= col <= width and ncols <= blocks * block_size):
+            raise ValueError(
+                f"dsfread_planes: {blocks} blocks of {channels} x "
+                f"{block_size} bytes in {raw.size} do not fill columns "
+                f"{col}:{width} of a {out.dtype} array")
+        self._dll.dsfread_planes(raw.ctypes.data, blocks, channels,
+                                 block_size, out.ctypes.data + col, width,
+                                 ncols)
+
+    def bitrev(self, a: np.ndarray) -> None:
+        """Reverse the bit order within each byte of `a`, in place
+        (LSB-first <-> MSB-first); equal to ``source.reverse_bits``."""
+        if a.dtype != np.uint8 or not a.flags.c_contiguous:
+            raise ValueError("dsfread_bitrev needs a C-contiguous uint8 "
+                             "array")
+        self._dll.dsfread_bitrev(a.ctypes.data, a.size)
+
+
+def load_reader() -> ReaderLib:
+    """The bound reader library, built on first use."""
+    global _reader
+    with _lock:
+        if _reader is None:
+            _reader = ReaderLib(ctypes.CDLL(str(build_reader())))
+        return _reader

@@ -536,20 +536,24 @@ class Converter:
         from dsd2dxd_tpu_torch.utils.logging import TRACE, get_logger
 
         elapsed = time.perf_counter() - t_start
-        info = self.source.info
+        src = self.source
+        info = src.info
         audio_s = valid_bits / info.rate.hz
         where = ", ".join(str(d) for d in devices)
         self.stats = {"tiles": tiles, "tile_bytes": tile_bytes,
                       "audio_s": audio_s, "elapsed_s": elapsed,
                       "write_s": write_s, "device": str(self.device),
-                      "devices": [str(d) for d in devices]}
+                      "devices": [str(d) for d in devices],
+                      "read_calls": src.read_calls,
+                      "read_tiles": src.read_tiles}
         if elapsed > 0 and audio_s > 0:
             get_logger().log(
                 TRACE,
                 f"{self.file_name()}: {audio_s:.1f}s audio in {elapsed:.2f}s "
                 f"({audio_s / elapsed:.0f}x real-time, "
                 f"{consumed * info.channels / elapsed / 2**20:.1f} MiB/s DSD "
-                f"in, on {where})")
+                f"in, {src.read_calls} reads for {src.read_tiles} tiles, "
+                f"on {where})")
 
     @staticmethod
     def _drain(pending, write, peak: float, frame_bytes: int,

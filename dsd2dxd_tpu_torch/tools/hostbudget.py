@@ -32,10 +32,13 @@ DSD64, MSB first -> s24le 176.4k) and config 4 (DSD256 .dsf -> f32 AIFC
 192k):
 
   read_planar       ``DsdSource._read_planar`` over a .dsf on disk written
-                    by ``formats/dsf.write_dsf`` (configs 1, 4)
+                    by ``formats/dsf.write_dsf`` (configs 1, 4): one
+                    ``readinto`` of the tile's blocks and the C++
+                    de-interleave (``native/src/dsfread.cc``)
   read_interleaved  ``DsdSource._read_interleaved`` from a raw file (config
                     2; the CLI reads a pipe)
-  bitrev            ``reverse_bits`` on the tile (the .dsf paths: LSB first)
+  bitrev            the reader's C++ bit reversal, in place on the tile
+                    (the .dsf paths: LSB first)
   stage_pinned      the copy into a pinned slot, as ``_Staging.run`` does
                     it (needs CUDA: left out under ``--device cpu``)
   write             the writer's ``write_packed`` (WAV, AIFC) or the raw
@@ -82,8 +85,8 @@ from dsd2dxd_tpu_torch.formats.dsd_types import (
     FmtType,
 )
 from dsd2dxd_tpu_torch.formats.dsf import open_dsf, write_dsf
-from dsd2dxd_tpu_torch.formats.source import open_raw_file, reverse_bits
-from dsd2dxd_tpu_torch.native.loader import load
+from dsd2dxd_tpu_torch.formats.source import open_raw_file
+from dsd2dxd_tpu_torch.native.loader import load, load_reader
 from dsd2dxd_tpu_torch.pipeline import engine
 from dsd2dxd_tpu_torch.pipeline.engine import int_frames
 from dsd2dxd_tpu_torch.utils.device import card_label, resolve_device
@@ -249,8 +252,9 @@ def tile_runners(cfg: TileConfig, workdir: Path, device: torch.device,
                 src._stream.close()
 
         runners["read_planar"] = read_planar
-        runners["bitrev"] = _timed(lambda: reverse_bits(planes))
+        runners["bitrev"] = _timed(lambda: load_reader().bitrev(planes))
     src_path.read_bytes()  # warm the page cache
+    load_reader()  # the reader library's build is no rep's
     if device.type == "cuda":
         pinned = torch.empty((2, tile), dtype=torch.uint8, pin_memory=True)
 

@@ -676,7 +676,8 @@ def test_trace_line_has_the_dsd_input_rate(tone_dsd64_stereo_dsf, tmp_path,
         log.setLevel(level)
     line, = [ln for ln in lines if "real-time" in ln]
     m = re.fullmatch(r"(\S+): ([\d.]+)s audio in ([\d.]+)s \((\d+)x "
-                     r"real-time, ([\d.]+) MiB/s DSD in, on cpu\)", line)
+                     r"real-time, ([\d.]+) MiB/s DSD in, \d+ reads for "
+                     r"\d+ tiles, on cpu\)", line)
     assert m and m[1] == tone_dsd64_stereo_dsf.name
     info = conv.source.info
     rate = (info.data_bytes_per_channel * info.channels
