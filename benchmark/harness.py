@@ -123,6 +123,15 @@ class Pump:
         self.send(op="results")
         return {int(k): v for k, v in self.reply().items()}
 
+    def drain(self, k: int, path: Path, slot, flac: bool) -> None:
+        """Have the child drain FIFO `path` (keeping it whole into `slot`,
+        counting its FLAC frames with `flac`); returns once the child has
+        the FIFO open, so a writer never waits on it."""
+        self.send(op="drain", id=k, path=str(path), slot=slot, flac=flac)
+        opened = self.reply()["open"]
+        if opened < 0:
+            raise OSError(-opened, f"the I/O child cannot open {path}")
+
     def fetch(self, k: int) -> bytes:
         self.send(op="send", id=k)
         n = self.reply()["bytes"]
@@ -263,8 +272,7 @@ class Run:
                   self.chain.frames(n_bits), keep, id=self.n_ids)
         out.parent.mkdir(parents=True, exist_ok=True)
         os.mkfifo(out)
-        self.pump.send(op="drain", id=t.id, path=str(out),
-                       slot=i if keep else None)
+        self.pump.drain(t.id, out, i if keep else None, self.ext == "flac")
         return t
 
     @staticmethod
@@ -315,9 +323,11 @@ class Run:
 
 
 def check_outputs(run: Run, results: dict) -> tuple[list, dict]:
-    """Per track: a fault or "" (a raised call, a missing or extra byte, a
-    header that is not the configuration's); and the check's numbers over
-    the kept tracks against the reference."""
+    """Per track: a fault or "" (a raised call, a drain that timed out, a
+    missing or extra byte -- for FLAC, a missing or extra sample or a
+    frame that fails its CRC -- or a header that is not the
+    configuration's); and the check's numbers over the kept tracks
+    against the reference."""
     import torch
 
     from benchmark.reference import check, containers
@@ -326,21 +336,30 @@ def check_outputs(run: Run, results: dict) -> tuple[list, dict]:
     faults = []
     layouts = {}
     for t in run.tracks:
-        got, head = results.get(t.id, [-1, ""])
+        res = results.get(t.id, {"bytes": -1, "head": "", "status": 0,
+                                 "flac": None})
+        got = res["bytes"]
         fault = t.error
+        if not fault and res["status"]:
+            fault = f"drain: {os.strerror(-res['status'])}"
         if not fault:
             try:
-                lay = containers.parse(run.ext, bytes.fromhex(head),
+                lay = containers.parse(run.ext, bytes.fromhex(res["head"]),
                                        cfg["channels"], cfg["output_rate"],
                                        cfg["bit_depth"])
-                data = t.frames * lay.frame_bytes
-                # WAV and AIFF pad an odd payload to an even size
-                want = lay.offset + data + (data & 1 if lay.padded else 0)
                 if (lay.channels, lay.rate) != (cfg["channels"],
                                                 cfg["output_rate"]):
                     fault = f"header: {lay}"
-                elif got != want:
-                    fault = f"{got} bytes, {want} expected"
+                elif lay.sample == "flac":
+                    fault = flac_fault(lay, res["flac"], t.frames,
+                                       cfg["bit_depth"])
+                else:
+                    data = t.frames * lay.frame_bytes
+                    # WAV and AIFF pad an odd payload to an even size
+                    want = lay.offset + data + (data & 1 if lay.padded
+                                                else 0)
+                    if got != want:
+                        fault = f"{got} bytes, {want} expected"
                 layouts[t.id] = lay
             except ValueError as e:
                 fault = f"header: {e}"
@@ -351,24 +370,54 @@ def check_outputs(run: Run, results: dict) -> tuple[list, dict]:
             p.unlink()
     errs = check.Errors()
     dev = run.device if run.device is not None else "cuda"
-    sound = {t.index: t for t, fault in zip(run.tracks, faults)
-             if t.keep and not fault}
-    for t in sound.values():
+    sound = {t.index: (k, t) for k, (t, fault) in enumerate(
+        zip(run.tracks, faults)) if t.keep and not fault}
+    compared = []
+    for k, t in sound.values():
         i = t.index
         data = run.pump.fetch(t.id)
-        payload = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+        lay = layouts[t.id]
+        if lay.sample == "flac":
+            try:
+                decoded = containers.flac_samples(data, lay.channels,
+                                                  t.frames)
+            except ValueError as e:
+                faults[k] = str(e)
+                continue
+            out = check.samples_block(torch.from_numpy(decoded).to(dev),
+                                      lay.bits)
+        else:
+            payload = torch.frombuffer(bytearray(data),
+                                       dtype=torch.uint8).to(dev)
+            out = check.program_block(payload, lay, cfg["bit_depth"])
         del data
         planes = torch.from_numpy(run.program.planes(i)).to(dev)
         errs.merge(check.compare(
-            run.chain, planes, t.frames,
-            check.program_block(payload, layouts[t.id], cfg["bit_depth"]),
+            run.chain, planes, t.frames, out,
             gain=10.0 ** (cfg["level_db"] / 20.0)))
-        del payload, planes
+        compared.append(i)
+        del out, planes
     # nothing compared: no number, and the run is not correct
     return faults, {"err_max_lsb": errs.max_abs if errs.n else None,
                     "err_rms_lsb": errs.rms if errs.n else None,
                     "compared": errs.n, "worst": errs.worst,
-                    "tracks": [i + 1 for i in sorted(sound)]}
+                    "tracks": [i + 1 for i in sorted(compared)]}
+
+
+def flac_fault(lay, counted: list, frames: int, bit_depth: int) -> str:
+    """A FLAC track's fault, or "": its bits per sample, and its frames as
+    the I/O child counted them while the stream passed: the block sizes
+    of the frames whose header CRC-8 and CRC-16 check must sum to the
+    track's frames, with no frame bad and no byte outside a frame."""
+    n_frames, samples, bad, stray = counted
+    if lay.bits != bit_depth:
+        return f"header: {lay.bits} bits per sample"
+    if bad or stray:
+        return f"FLAC: {bad} bad frames, {stray} stray bytes"
+    if samples != frames:
+        return (f"FLAC: {samples} samples in {n_frames} frames, {frames} "
+                f"expected")
+    return ""
 
 
 def within(value, limit) -> bool:
@@ -440,6 +489,7 @@ def main(argv=None, device=None, root: Path = ROOT) -> int:
             from benchmark import tracing, work
 
             summary = tracing.summarise(tmp / "traces")
+            summary.walls = [t.wall for t in run.tracks]
             if not own_trace:
                 summary.audio_s = sum(t.audio_s for t in run.tracks)
             cfg = cell.config
@@ -454,14 +504,12 @@ def main(argv=None, device=None, root: Path = ROOT) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     bad = [f for f in faults if f]
-    walls = [t.wall for t in run.tracks]
     from benchmark import stats
 
     metrics = {}
     if not run.trace:
         values = {"audio_xrt": (stats.audio_xrt([t.audio_s for t in run.tracks],
                                                 window_s), "audio-s/s"),
-                  "track_s_p95": (stats.track_s_p95(walls), "s"),
                   "setup_s": (setup_s, "s")}
         metrics = {k: {"value": values[k][0], "unit": values[k][1]}
                    for k in cell.e2e if k in values}

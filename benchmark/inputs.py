@@ -18,9 +18,7 @@ with only the last block padded.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -28,6 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
+from benchmark import native
 from benchmark.reference import containers
 
 ROOT = Path(__file__).resolve().parent
@@ -50,19 +49,7 @@ def modulator():
 
 
 def _build() -> Path:
-    digest = hashlib.sha256(NATIVE.read_bytes()).hexdigest()[:16]
-    so = BUILD / f"libbenchdsm_{digest}.so"
-    if not so.exists():
-        BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        res = subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o",
-                              str(tmp), str(NATIVE)],
-                             capture_output=True, text=True)
-        if res.returncode:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"g++ failed on {NATIVE}:\n{res.stderr}")
-        os.replace(tmp, so)
-    return so
+    return native.build(NATIVE, BUILD, "libbenchdsm")
 
 
 def _load(so: Path):

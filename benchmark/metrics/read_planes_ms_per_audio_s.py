@@ -1,8 +1,9 @@
 """Milliseconds the source reader takes per audio-second to read the
-file's bytes into per-channel planes (``formats/source.py``: the reads,
-the DSF block loop or the interleaved reshape, the concatenation): the
-port's ``dsd2dxd.read.planes`` spans, inside ``dsd2dxd.read``, over the
-traced streams' audio seconds."""
+file's bytes into per-channel planes (``formats/source.py``'s
+``_read_planar``: one ``readinto`` of a tile's blocks into a reused
+buffer, then the C++ ``dsfread_planes`` de-interleave into a fresh array;
+or ``_read_interleaved``'s reshape): the port's ``dsd2dxd.read.planes``
+spans, inside ``dsd2dxd.read``, over the traced streams' audio seconds."""
 
 
 def read(s):

@@ -91,6 +91,18 @@ def program_block(payload: torch.Tensor, layout: containers.Layout,
     return block
 
 
+def samples_block(samples: torch.Tensor,
+                  bits: int) -> Callable[[int, int], torch.Tensor]:
+    """out_block over decoded (C, frames) integer samples of `bits` bits
+    (a FLAC stream's), scaled to ``compare``'s 2^-23 LSB."""
+    scale = float(1 << (24 - min(bits, 24)))
+
+    def block(a: int, b: int) -> torch.Tensor:
+        return samples[:, a:b].to(torch.float64) * scale
+
+    return block
+
+
 def epilogue(y: torch.Tensor, bit_depth: int, dither: str,
              gen: torch.Generator) -> torch.Tensor:
     """What a program emits for the (C, n) float32 samples y: float32

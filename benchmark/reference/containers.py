@@ -7,12 +7,18 @@ reads, by the published layouts:
   an 80-bit float, compression ``fl32`` or ``NONE``), then ``SSND`` (offset,
   block size, samples);
 - raw s24le / f32le frames on stdout;
+- FLAC: the ``fLaC`` marker, STREAMINFO (block sizes, rate, channels, bits
+  per sample, total samples), then frames; decoded by the C++ reader
+  ``native/flac.h`` (``flac_samples``), written from the format (RFC
+  9639) and sharing nothing with the port's encoder;
 - DSF input: the ``DSD ``, ``fmt `` and ``data`` chunks, LSB-first bits in
   planar blocks of 4096 bytes per channel, the last block zero-padded;
 - raw DSD input: MSB-first bytes, interleaved by channel.
 
 A writer that cannot seek (a pipe) leaves the size fields as it first
-wrote them, so the frames are read by the count the caller expects.
+wrote them, so the frames are read by the count the caller expects (a
+FLAC stream's STREAMINFO total and MD5 stay 0: its frames are counted
+from the stream itself).
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ BITREV = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)],
 @dataclass(frozen=True)
 class Layout:
     """Where a conversion's samples are: the payload's byte offset, its
-    channels, rate and sample type (``s16``/``s24``/``f32``), byte order,
-    and whether an odd payload is padded to an even size (a chunk)."""
+    channels, rate and sample type (``s16``/``s24``/``f32``, or ``flac``
+    with its bits per sample), byte order, and whether an odd payload is
+    padded to an even size (a chunk)."""
 
     offset: int
     channels: int
@@ -41,6 +48,7 @@ class Layout:
     sample: str
     big_endian: bool
     padded: bool = True
+    bits: int = 0  # a FLAC stream's bits per sample
 
     @property
     def frame_bytes(self) -> int:
@@ -111,20 +119,46 @@ def raw_layout(channels: int, rate: int, bit_depth: int) -> Layout:
                   False, False)
 
 
+def parse_flac(head: bytes) -> Layout:
+    """STREAMINFO, and the first frame's offset past every metadata
+    block."""
+    if head[:4] != b"fLaC":
+        raise ValueError("not a FLAC stream")
+    pos, info = 4, None
+    while True:
+        if pos + 4 > len(head):
+            raise ValueError("FLAC metadata longer than the header bytes")
+        last, kind = head[pos] & 0x80, head[pos] & 0x7F
+        size = int.from_bytes(head[pos + 1:pos + 4], "big")
+        if (kind == 0) != (info is None) or (kind == 0 and size != 34):
+            raise ValueError("FLAC STREAMINFO missing or not first")
+        if kind == 0:
+            b = int.from_bytes(head[pos + 14:pos + 22], "big")
+            info = (b >> 44, ((b >> 41) & 7) + 1, ((b >> 36) & 31) + 1)
+        pos += 4 + size
+        if last:
+            break
+    rate, ch, bits = info
+    return Layout(pos, ch, rate, "flac", True, False, bits)
+
+
 # the output extensions, as the CLI names them, that parse() reads
-EXTENSIONS = ("wav", "aifc", "pcm")
+EXTENSIONS = ("wav", "aifc", "pcm", "flac")
 
 
 def parse(extension: str, head: bytes, channels: int, rate: int,
           bit_depth: int) -> Layout:
     """The layout of a conversion's output, by the extension the CLI
-    gives it: ``wav``, ``aifc``, or ``pcm`` (stdout's raw frames)."""
+    gives it: ``wav``, ``aifc``, ``pcm`` (stdout's raw frames) or
+    ``flac``."""
     if extension == "wav":
         return parse_wav(head)
     if extension == "aifc":
         return parse_aifc(head)
     if extension == "pcm":
         return raw_layout(channels, rate, bit_depth)
+    if extension == "flac":
+        return parse_flac(head)
     raise ValueError(f"no reader of .{extension} output")
 
 
@@ -144,6 +178,23 @@ def samples(payload: torch.Tensor, layout: Layout) -> torch.Tensor:
         shift = 32 - 8 * width
         out = (word << shift) >> shift  # sign-extend
     return out.reshape(-1, layout.channels).T
+
+
+def flac_samples(data, channels: int, frames: int) -> np.ndarray:
+    """(C, frames) int32 samples of a whole FLAC stream, decoded by the C++
+    reader; ValueError where the stream is not a sound FLAC stream of
+    `channels` channels and exactly `frames` samples per channel (every
+    frame's header CRC-8 and CRC-16 checked, frames in sequence)."""
+    from benchmark import native
+
+    out = np.zeros((channels, frames + 1), dtype=np.int32)
+    n, err, at, frame = native.flac_decode(
+        np.frombuffer(data, dtype=np.uint8), out)
+    if n < 0:
+        raise ValueError(f"FLAC: {err} at byte {at} (frame {frame})")
+    if n != frames:
+        raise ValueError(f"FLAC: {n} samples per channel, {frames} expected")
+    return out[:, :frames]
 
 
 # ---- inputs ----------------------------------------------------------------

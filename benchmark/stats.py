@@ -1,4 +1,5 @@
-"""The end-to-end numbers of a window, from the walls of its tracks."""
+"""The numbers of a window from its tracks: ``audio_xrt`` end to end, the
+tracks' walls' 95th percentile per layer (``metrics/track_wall_p95_s``)."""
 
 from __future__ import annotations
 

@@ -14,15 +14,25 @@ ROOT = Path(__file__).resolve().parents[1]
 REPO = ROOT.parent
 
 
-def tiny_copy(dst: Path) -> Path:
+FLAC_CELL = "dsd64-352k8-s20-njad.album-flac"
+
+
+def tiny_copy(dst: Path, test_cells=()) -> Path:
     """dst/benchmark, dst/BENCHMARK.json: every cell's tracks cut to one to
     three engine tiles (8 KiB per channel at DSD64, 10-38 ms; the 48k
     chain's least tile at DSD256, 0.21 s, for 0.25-0.45 s), short
     segments; a workload file that BENCHMARK.json does not list (the raw
     pipe's, kept for a later PR) is listed in the copy, so that its entry
-    stays tested."""
+    stays tested. `test_cells` names cells of the tests' own (a workload
+    and its configuration under tests/flac/) to add to the copy."""
     shutil.copytree(ROOT, dst / "benchmark",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    for name in test_cells:
+        config = name.split(".")[0]
+        shutil.copy(ROOT / "tests" / "flac" / f"{name}.json",
+                    dst / "benchmark" / "workloads")
+        shutil.copy(ROOT / "tests" / "flac" / f"{config}.json",
+                    dst / "benchmark" / "configs")
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     listed = {w["name"] for w in bench["workloads"]}
     for p in (dst / "benchmark" / "workloads").glob("*.json"):
@@ -50,4 +60,4 @@ def tiny(tmp_path, monkeypatch):
     monkeypatch.setattr(engine, "_DEFAULT_TILE_TARGET", 8 * 1024)
     monkeypatch.setattr(harness, "WARM_S", 0.05)
     monkeypatch.setenv("TMPDIR", str(tmp_path))
-    return tiny_copy(tmp_path / "copy")
+    return tiny_copy(tmp_path / "copy", [FLAC_CELL])

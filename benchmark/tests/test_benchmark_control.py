@@ -15,8 +15,7 @@ from benchmark.reference import check, decimate
 
 from .conftest import ROOT
 
-CELLS = ["dsd64-352k8-s24-tpdf.album-dsf", "dsd256-384k-f32-fpd.album-dsf",
-         "dsd64-352k8-s24-tpdf.library-batch"]
+CELLS = ["dsd64-352k8-s24-tpdf.album-dsf", "dsd256-384k-f32-fpd.album-dsf"]
 
 
 def needs_card():

@@ -12,10 +12,14 @@ import torch
 
 from benchmark import harness
 
+from .conftest import FLAC_CELL
+
 # the raw pipe's workload is not a cell of BENCHMARK.json (PERF.md): the
-# tiny copy lists it, so that the stdin entry stays tested
+# tiny copy lists it, so that the stdin entry stays tested; nor is the
+# tests' own FLAC cell (tests/flac/), which holds the FLAC reader
 CELLS = ["dsd64-352k8-s24-tpdf.album-dsf", "dsd64-352k8-s24-tpdf.raw-pipe",
-         "dsd256-384k-f32-fpd.album-dsf", "dsd64-352k8-s24-tpdf.library-batch"]
+         "dsd256-384k-f32-fpd.album-dsf", "dsd64-352k8-s24-tpdf.library-batch",
+         FLAC_CELL]
 
 
 def break_step(monkeypatch, fault: str) -> None:
@@ -75,7 +79,9 @@ def test_broken_timed_path_is_not_correct(cell, fault, tiny, capsys,
                                           monkeypatch):
     torch.manual_seed(0)
     break_step(monkeypatch, fault)
-    line = run_cell(cell, tiny, capsys)
+    # the sound runs' window: long enough for the first lap on a loaded
+    # CPU, so that the compared tracks are in it
+    line = run_cell(cell, tiny, capsys, seconds=6)
     assert line["correct"] is False
     assert line["check"]["err_max_lsb"]["value"] > \
         line["check"]["err_max_lsb"]["limit"]

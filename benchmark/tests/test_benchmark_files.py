@@ -144,13 +144,14 @@ def test_an_entry_added_as_a_file_is_found(tmp_path):
 
 def test_an_output_the_reference_cannot_read_is_refused():
     cell = harness.load_cell("dsd64-352k8-s24-tpdf.album-dsf")
-    cell.work = {**cell.work, "argv": ["-o", "F"]}
+    cell.work = {**cell.work, "argv": ["-o", "a"]}
     run = harness.Run(cell, 1, 1.0, False, "cpu", ROOT, None,
                       harness.entry("album"))
-    with pytest.raises(ValueError, match="flac"):
+    with pytest.raises(ValueError, match="aif"):
         run.parse_cli()
-    with pytest.raises(ValueError, match="flac"):
-        containers.parse("flac", b"fLaC", 2, 352800, 24)
-    run.cell.work["argv"] = ["-o", "w"]
-    run.parse_cli()
-    assert run.ext in containers.EXTENSIONS
+    with pytest.raises(ValueError, match="aif"):
+        containers.parse("aif", b"FORM", 2, 352800, 24)
+    for out, ext in (("w", "wav"), ("F", "flac")):
+        run.cell.work["argv"] = ["-o", out]
+        run.parse_cli()
+        assert run.ext == ext and ext in containers.EXTENSIONS

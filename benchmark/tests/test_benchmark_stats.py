@@ -22,3 +22,13 @@ def test_track_s_p95_with_one_long_stall():
     assert stats.track_s_p95([2.5]) == 2.5
     walls = [0.5 + 0.01 * k for k in range(100)]
     assert stats.track_s_p95(walls) == pytest.approx(0.5 + 0.01 * 94.05)
+
+
+def test_track_wall_p95_s_reads_the_traced_walls():
+    from benchmark import harness, tracing
+
+    read = harness.reader("track_wall_p95_s")
+    assert read(tracing.Summary()) is None
+    assert read(tracing.Summary(walls=[])) is None
+    walls = [1.0] * 19 + [11.0]
+    assert read(tracing.Summary(walls=walls)) == stats.track_s_p95(walls)

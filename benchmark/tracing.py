@@ -55,6 +55,7 @@ class Summary:
     idle_by_span: dict = field(default_factory=dict)
     audio_s: float | None = None
     work: tuple | None = None  # the chain's (bytes, f32, int) per audio-s
+    walls: list | None = None  # each track's wall, call to closed output
 
     def add(self, path: Path) -> None:
         events = [e for e in json.loads(path.read_text())["traceEvents"]
