@@ -17,11 +17,13 @@ SURVEY.md §2.2 FLAC row).
 from __future__ import annotations
 
 import struct
+import time
 from typing import BinaryIO, Optional
 
 import numpy as np
 
 from dsd2dxd_tpu_torch.utils.errors import ConfigError
+from dsd2dxd_tpu_torch.utils.trace import span
 
 
 def _picture_body(pic) -> bytes:
@@ -77,6 +79,10 @@ class FlacWriter:
         self.sample_rate = sample_rate
         self.bit_depth = bit_depth
         self._comments, self._pictures = self._map_id3(id3)
+        # the encoder's seconds (flac_feed, flac_finish and their drains)
+        # and the encoded frames' bytes written, metadata left out
+        self.encode_s = 0.0
+        self.bytes_written = 0
         self._enc = native.flac_new(sample_rate, channels, bit_depth,
                                     block_size)
         self._write_header()
@@ -131,18 +137,25 @@ class FlacWriter:
     def write(self, samples: np.ndarray) -> None:
         """samples: (frames, channels) int32, already quantized. 20-bit
         samples are the native 20-bit values (NOT shifted into 24-bit
-        containers — FLAC carries bits-per-sample natively)."""
-        self._native.flac_feed(self._enc, samples)
-        data = self._native.flac_drain(self._enc)
+        containers — FLAC carries bits-per-sample natively). The encode
+        runs in the span ``dsd2dxd.drain.flac``."""
+        self._write_encoded(self._native.flac_feed, samples)
+
+    def _write_encoded(self, encode, *args) -> None:
+        """encode(handle, *args), then its finished frames drained and
+        written; the encode and the drain are timed and spanned."""
+        with span("dsd2dxd.drain.flac"):
+            t0 = time.perf_counter()
+            encode(self._enc, *args)
+            data = self._native.flac_drain(self._enc)
+            self.encode_s += time.perf_counter() - t0
         if data:
             self.f.write(data)
+            self.bytes_written += len(data)
 
     def finalize(self) -> None:
         try:
-            self._native.flac_finish(self._enc)
-            data = self._native.flac_drain(self._enc)
-            if data:
-                self.f.write(data)
+            self._write_encoded(self._native.flac_finish)
             if self.f.seekable():
                 self.f.seek(0)
                 header = self._native.flac_header(

@@ -279,8 +279,10 @@ class Converter:
         self.base_dir = Path(base_dir) if base_dir else None
         self.tile_target_bytes = (tile_target_bytes if tile_target_bytes
                                   else _DEFAULT_TILE_TARGET)
-        # filled by _run: tiles, audio seconds, wall seconds, tile bytes
+        # filled by _run: tiles, audio seconds, wall seconds, tile bytes;
+        # by do_conversion: the FLAC encoder's seconds and bytes
         self.stats: dict = {}
+        self._njad_s = 0.0  # the drain thread's seconds inside NJAD
         self._out_path = self._build_output_path()
 
     # -- construction mirroring the reference API ---------------------------
@@ -542,7 +544,9 @@ class Converter:
         where = ", ".join(str(d) for d in devices)
         self.stats = {"tiles": tiles, "tile_bytes": tile_bytes,
                       "audio_s": audio_s, "elapsed_s": elapsed,
-                      "write_s": write_s, "device": str(self.device),
+                      "write_s": write_s, "njad_s": self._njad_s,
+                      "flac_s": 0.0, "flac_bytes": 0,
+                      "device": str(self.device),
                       "devices": [str(d) for d in devices],
                       "read_calls": src.read_calls,
                       "read_tiles": src.read_tiles}
@@ -578,16 +582,27 @@ class Converter:
         bytes: `write_packed` itself, or for NJAD and FLAC a sink that
         views them as (n_valid, C) frames for `write_frames` -- NJAD
         requantizes the f32 frames (one state per file, freed on exit),
-        FLAC takes the integer words as int32."""
+        FLAC takes the integer words as int32. NJAD runs in the span
+        ``dsd2dxd.drain.njad``, inside ``dsd2dxd.drain.write``, and its
+        seconds go to ``stats["njad_s"]``."""
         ch = self.source.info.channels
         if self.dither is DitherType.NJAD:
             from dsd2dxd_tpu_torch.native.loader import load
 
             native = load()
             state = native.njad_new(ch)
+
+            def njad(wire: np.ndarray) -> None:
+                with span("dsd2dxd.drain.njad"):
+                    t0 = time.perf_counter()
+                    frames = native.njad_quantize(
+                        state, wire.view("<f4").reshape(-1, ch),
+                        self.bit_depth)
+                    self._njad_s += time.perf_counter() - t0
+                write_frames(frames)
+
             try:
-                yield lambda wire: write_frames(native.njad_quantize(
-                    state, wire.view("<f4").reshape(-1, ch), self.bit_depth))
+                yield njad
             finally:
                 native.njad_free(state)
         elif self.output is OutputType.FLAC:
@@ -632,6 +647,9 @@ class Converter:
                 # the header gets real sizes even on cancel or error; a
                 # FLAC writer also frees its encoder here
                 writer.finalize()
+        if self.output is OutputType.FLAC:
+            self.stats.update(flac_s=writer.encode_s,
+                              flac_bytes=writer.bytes_written)
 
     def check_level(self, cancel: Optional[CancelFn] = None,
                     progress: Optional[ProgressFn] = None) -> float:

@@ -22,7 +22,11 @@ names:
   ``dsd2dxd.stage.fill`` (the copy into it) and ``dsd2dxd.stage.enqueue``;
 - ``dsd2dxd.wait_drain``: the reader's waits on the drain thread;
 - ``dsd2dxd.drain.wait_copy`` and ``dsd2dxd.drain.write``, on the drain
-  thread: the wait for a tile's copy back, and its write;
+  thread: the wait for a tile's copy back, and its write; inside the
+  write, ``dsd2dxd.drain.njad`` (the host's NJAD requantizer, ``-d N``)
+  and ``dsd2dxd.drain.flac`` (the FLAC encoder's encode of the tile, and
+  of the last frames at ``finalize``, which runs after the stream's
+  spans), only in conversions that run them;
 - ``dsd2dxd.finish``: from the end of the loop to the return.
 
 Both routes (the streaming loop and ``parallel/sharded.py``) use these
